@@ -4,10 +4,10 @@ Flag and behavior parity with ``ribodetector_tpu.cli`` (and through it with
 the reference entry points, ribodetector/detect.py:763-809 and
 detect_cpu.py:776-825): the same flags, config keys, log lines and output
 conventions. ``main`` runs the classify step on the card and fails when no
-CUDA device is visible; ``main_cpu`` pins the CPU (the plain fp32
+CUDA device is visible; ``main_cpu`` pins the CPU (the plain
 recurrence). Flags whose paths this package does not carry yet (--resume,
---hosts > 1, --coordinator, --trace-dir, --precision fast) are refused with
-a "not yet ported" error before any work starts.
+--hosts > 1, --coordinator) are refused with a "not yet ported" error
+before any work starts.
 """
 
 import argparse
@@ -55,7 +55,7 @@ none: give label based on the mean probability of read pair.
     args.add_argument("--profile", action="store_true",
                       help="Log per-stage wall-time breakdown (parse/encode/infer/write) at the end of the run")
     args.add_argument("--trace-dir", default=None, type=str,
-                      help="Capture a profiler trace of the run into this directory (not yet ported in ribodetector_tpu_torch)")
+                      help="Capture a torch.profiler trace of the run (host ops, and the card's kernels and\ncopies when on the card) into this directory as a Chrome trace JSON")
     args.add_argument("--resume", action="store_true",
                       help="Restartable streaming: after each completed chunk, record every output's\nbyte offset in <output>.progress.json; an interrupted run truncates the\noutputs to the last completed offset and continues from there.\n(not yet ported in ribodetector_tpu_torch)")
     args.add_argument("--semantics", default=None, type=str,
@@ -63,7 +63,7 @@ none: give label based on the mean probability of read pair.
                       help="Recurrence/gather semantics to reproduce: dense = reference CPU/ONNX path,\npacked = reference GPU/cuDNN PackedSequence path. (default: config value, dense)")
     args.add_argument("--kernel", default=None, type=str,
                       choices=["auto", "cuda", "plain"],
-                      help="Compute kernel: the hand-written CUDA kernel (on the card), the plain\nfp32 recurrence (on the CPU), or auto = whichever the device runs. (default: auto)")
+                      help="Compute kernel: the hand-written CUDA kernel (on the card), the plain\nrecurrence (on the CPU), or auto = whichever the device runs. (default: auto)")
     args.add_argument("--precision", default=None, type=str,
                       choices=["exact", "high", "fast"],
                       help="""Precision of the CUDA kernel:
@@ -71,7 +71,11 @@ exact: fp32 recurrence (fp32 FMA, IEEE sigmoid/tanh);
 high:  2-limb bf16 split of the recurrent product accumulated in fp32 +
        tanh-form sigmoid, gated at startup by an argmax-parity probe against
        exact (default);
-fast:  one bf16 pass (not yet ported in ribodetector_tpu_torch)""")
+fast:  one bf16 pass (bf16 operands, fp32 accumulate, fp32 state) -- throughput
+       over parity.
+Under runtime.compute_dtype=bfloat16 in the config, high and fast run the
+one-pass kernel with bf16 state. On the CPU the plain recurrence runs in the
+compute dtype whatever the precision.""")
     args.add_argument("--buckets", default=None, type=str,
                       help="Length-bucketed batching for variable-length reads: auto (64-step\npadded-T grid up to -l; each read runs the smallest fitting bucket with\nexact full-length semantics via a precomputed backward-carry init), off,\nor a comma list of bucket lengths. (default: auto)")
     args.add_argument("--gz-level", default=None, type=int, choices=range(1, 13),
@@ -115,7 +119,7 @@ def main(argv=None):
 
 def main_cpu(argv=None):
     """`ribodetector_cpu` parity entry point: the same engine PINNED to the
-    host CPU, running the plain fp32 recurrence."""
+    host CPU, running the plain recurrence."""
     _run(argv, "cpu")
 
 

@@ -21,8 +21,10 @@ Two gather semantics, as in the JAX package:
 - "packed" (the cuDNN PackedSequence path): the forward state is taken at
   t=L-1 and the backward direction starts at t=L-1.
 
-``bilstm_logits`` is the plain fp32 recurrence: the CPU classify path and
-the plain version of the exact CUDA kernel (ops/lstm_cuda.py).
+``bilstm_logits`` is the plain recurrence: in fp32 the CPU classify path and
+the plain version of the exact CUDA kernel (ops/lstm_cuda.py); in bf16
+(compute_dtype=torch.bfloat16) the CPU path of the bf16 config, the
+counterpart of the JAX scan in bf16.
 """
 
 from typing import NamedTuple
@@ -118,9 +120,10 @@ def _lstm_cell(h, c, gates_x, w_hh):
     return h_new, c_new
 
 
-def zero_prefix_state(params: BiLSTMParams, k: int):
+def zero_prefix_state(params: BiLSTMParams, k: int, compute_dtype=torch.float32):
     """Backward-direction (h, c) after k zero-input steps from zero state,
-    in exact fp32.
+    in compute_dtype (exact fp32 by default; bfloat16 runs the bf16 scan of
+    bilstm_logits).
 
     The basis of exact length-bucketed batching: under dense semantics the
     backward LSTM absorbs every pad row above a read's last base, and
@@ -131,18 +134,21 @@ def zero_prefix_state(params: BiLSTMParams, k: int):
     the bucket. All-pad reads are the exception (their T-1 gather is
     bucket-dependent); the router sends those to the full bucket.
 
-    Returns (h, c), each [1, HIDDEN].
+    Returns (h, c), each [1, HIDDEN] in compute_dtype.
     """
-    gates_x = params.b_b[None, :]
-    h = torch.zeros((1, params.w_hh_b.shape[0]), dtype=torch.float32,
+    cd = compute_dtype
+    gates_x = params.b_b.to(cd)[None, :]
+    w_hh_b = params.w_hh_b.to(cd)
+    h = torch.zeros((1, params.w_hh_b.shape[0]), dtype=cd,
                     device=params.b_b.device)
     c = h
     for _ in range(k):
-        h, c = _lstm_cell(h, c, gates_x, params.w_hh_b)
+        h, c = _lstm_cell(h, c, gates_x, w_hh_b)
     return h, c
 
 
-def bilstm_last_out(params, tokens, lengths, *, semantics, bwd_init, cell):
+def bilstm_last_out(params, tokens, lengths, *, semantics, bwd_init, cell,
+                    dtype=torch.float32):
     """The shared recurrence: [B, T] tokens -> last_out [B, 2*hidden].
 
     Both directions advance in one loop: step t runs the forward cell at
@@ -150,22 +156,24 @@ def bilstm_last_out(params, tokens, lengths, *, semantics, bwd_init, cell):
     captured at the per-read gather position with a masked select.
     cell(h, c, gates_x, d) -> (h, c) is the per-direction cell (d = 0
     forward, 1 backward), so the exact and the split-precision ("high")
-    forwards share everything but their arithmetic.
+    forwards share everything but their arithmetic. dtype is the state's
+    type: the token tables, the carries and last_out are held in it.
     """
     packed = check_contract(semantics, lengths, bwd_init)
     B, T = tokens.shape
     tokens = tokens.long()
     hidden = params.w_hh_f.shape[0]
     dev = params.w_hh_f.device
-    e = (token_table(params.w_ih_f, params.b_f), token_table(params.w_ih_b, params.b_b))
+    e = (token_table(params.w_ih_f, params.b_f).to(dtype),
+         token_table(params.w_ih_b, params.b_b).to(dtype))
     if packed:
         lengths = lengths.to(device=dev, dtype=torch.int32)
     gather = gather_index(tokens, lengths, packed)
 
-    z = torch.zeros((B, hidden), dtype=torch.float32, device=dev)
+    z = torch.zeros((B, hidden), dtype=dtype, device=dev)
     if bwd_init is not None:
-        hb = bwd_init[0].reshape(1, hidden).to(torch.float32).expand(B, hidden)
-        cb = bwd_init[1].reshape(1, hidden).to(torch.float32).expand(B, hidden)
+        hb = bwd_init[0].reshape(1, hidden).to(dtype).expand(B, hidden)
+        cb = bwd_init[1].reshape(1, hidden).to(dtype).expand(B, hidden)
     else:
         hb, cb = z, z
     hf, cf, cap_f, cap_b = z, z, z, z
@@ -191,8 +199,8 @@ def head(params, last_out):
 
 
 def bilstm_logits(params: BiLSTMParams, tokens, lengths=None, *,
-                  semantics="dense", bwd_init=None):
-    """Classify a padded batch of token reads (plain fp32 recurrence).
+                  semantics="dense", bwd_init=None, compute_dtype=torch.float32):
+    """Classify a padded batch of token reads (plain recurrence).
 
     Args:
       params: BiLSTMParams.
@@ -201,14 +209,21 @@ def bilstm_logits(params: BiLSTMParams, tokens, lengths=None, *,
       semantics: "dense" (ONNX/detect_cpu parity) or "packed" (cuDNN parity).
       bwd_init: optional (h, c) [1, HIDDEN] backward-carry init from
         zero_prefix_state (length-bucketed batching, dense only).
+      compute_dtype: torch.float32 (exact fp32, the default) or
+        torch.bfloat16: the JAX scan's bf16 arithmetic -- token tables and
+        W_hh cast to bf16, h @ W_hh with a bf16 result, every sigmoid,
+        tanh and elementwise op on bf16 tensors, the head in bf16.
 
     Returns: [B, 2] fp32 logits (class 0 = non-rRNA, 1 = rRNA).
     """
-    w_hh = (params.w_hh_f, params.w_hh_b)
+    cd = compute_dtype
+    w_hh = (params.w_hh_f.to(cd), params.w_hh_b.to(cd))
 
     def cell(h, c, gates_x, d):
         return _lstm_cell(h, c, gates_x, w_hh[d])
 
     last_out = bilstm_last_out(params, tokens, lengths, semantics=semantics,
-                               bwd_init=bwd_init, cell=cell)
-    return head(params, last_out)
+                               bwd_init=bwd_init, cell=cell, dtype=cd)
+    if cd == torch.float32:
+        return head(params, last_out)
+    return (last_out @ params.w_out.to(cd) + params.b_out.to(cd)).to(torch.float32)

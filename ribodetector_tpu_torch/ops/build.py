@@ -110,8 +110,9 @@ def kernel_library():
             path, _ = build_kernels()
             lib = ctypes.CDLL(path)
             vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.rd_bilstm_exact.restype = i32
-            lib.rd_bilstm_exact.argtypes = [vp] * 7 + [i32, i32, i32, vp]
+            for name in ("rd_bilstm_exact", "rd_bilstm_fast", "rd_bilstm_fast_bf16"):
+                getattr(lib, name).restype = i32
+                getattr(lib, name).argtypes = [vp] * 7 + [i32, i32, i32, vp]
             lib.rd_bilstm_high.restype = i32
             lib.rd_bilstm_high.argtypes = [vp] * 8 + [i32, i32, i32, vp]
             lib.rd_cuda_error_string.restype = ctypes.c_char_p

@@ -3,7 +3,7 @@
 Counterpart of ``ribodetector_tpu/ops/dispatch.py``: the unpacking of the
 native parser's packed token rows on the device, and the kernel choice.
 The choice follows the tensor's device: the hand-written CUDA kernel for a
-CUDA tensor, the plain fp32 recurrence (models/bilstm.py) for a CPU tensor.
+CUDA tensor, the plain recurrence (models/bilstm.py) for a CPU tensor.
 ``kernel`` (runtime config key runtime.kernel, CLI --kernel) is "auto",
 "cuda" or "plain"; an explicit value that contradicts the device raises.
 """
@@ -13,6 +13,7 @@ import torch
 from ribodetector_tpu_torch.models.bilstm import bilstm_logits
 
 KERNELS = ("auto", "cuda", "plain")
+PRECISIONS = ("exact", "high", "fast")
 
 
 def unpack_b5_tokens(packed, max_len):
@@ -66,19 +67,43 @@ def resolve_kernel(kernel, device):
     return kernel
 
 
+def kernel_mode(mode, compute_dtype):
+    """The CUDA kernel that runs precision `mode` under `compute_dtype`.
+
+    fp32 compute: "exact", "high" and "fast" each have their kernel. bf16
+    compute runs the single bf16 pass with bf16 state ("fast_bf16") for
+    "high" and "fast", as the JAX package rewrites matmul x3 to x1 under
+    bf16; "exact" under bf16 raises, as the Pallas x6 mode does (a bit-exact
+    label must not silently run one low-precision pass)."""
+    if mode not in PRECISIONS:
+        raise ValueError(f"unknown precision mode: {mode} (choose from {PRECISIONS})")
+    if compute_dtype == torch.float32:
+        return mode
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    if mode == "exact":
+        raise ValueError("precision 'exact' requires float32 compute_dtype on "
+                         "the card (bfloat16 runs the one-pass 'fast' kernel)")
+    return "fast_bf16"
+
+
 def classify_logits(params, tokens, lengths=None, *, semantics="dense",
-                    kernel="auto", mode="high", bwd_init=None):
+                    kernel="auto", mode="high", compute_dtype=torch.float32,
+                    bwd_init=None):
     """[B, T] tokens -> [B, 2] logits with the kernel the device runs.
 
-    mode selects the CUDA kernel's precision ("exact" or "high"); the plain
-    CPU recurrence is fp32 throughout, so mode does not change it.
-    bwd_init is the length-bucketing backward-carry init
-    (models/bilstm.py zero_prefix_state).
+    On the card mode ("exact", "high" or "fast") and compute_dtype select
+    the CUDA kernel (kernel_mode). On the CPU the plain recurrence runs in
+    compute_dtype and mode does not change it, as the JAX package's CPU
+    scan ignores its precision mode. bwd_init is the length-bucketing
+    backward-carry init (models/bilstm.py zero_prefix_state).
     """
     if resolve_kernel(kernel, tokens.device) == "cuda":
         from ribodetector_tpu_torch.ops.lstm_cuda import bilstm_logits_cuda
 
         return bilstm_logits_cuda(params, tokens, lengths, semantics=semantics,
-                                  mode=mode, bwd_init=bwd_init)
+                                  mode=kernel_mode(mode, compute_dtype),
+                                  bwd_init=bwd_init)
+    kernel_mode(mode, torch.float32)  # the same check of mode as on the card
     return bilstm_logits(params, tokens, lengths, semantics=semantics,
-                         bwd_init=bwd_init)
+                         bwd_init=bwd_init, compute_dtype=compute_dtype)

@@ -1,23 +1,34 @@
 """Fused bidirectional LSTM on the card: wrapper around csrc/bilstm.cu.
 
 ``bilstm_logits_cuda`` is the twin of ``ribodetector_tpu``'s
-``bilstm_logits_pallas`` with two precision modes, each its own hand-written
-Hopper kernel:
+``bilstm_logits_pallas`` with four precision modes, each its own
+hand-written Hopper kernel:
 
-  "exact"  fp32 recurrence (fp32 FMA, IEEE sigmoid/tanh). Replaces the Pallas
-           ``_kernel`` in its "x6" mode. Plain version:
-           models/bilstm.bilstm_logits.
-  "high"   2-limb bf16 split of the recurrent product accumulated in fp32,
-           tanh-form sigmoid. Replaces the Pallas ``_kernel_x3cat``. Plain
-           version: bilstm_logits_high_plain below.
+  "exact"     fp32 recurrence (fp32 FMA, IEEE sigmoid/tanh). Replaces the
+              Pallas ``_kernel`` in its "x6" mode. Plain version:
+              models/bilstm.bilstm_logits.
+  "high"      2-limb bf16 split of the recurrent product accumulated in
+              fp32, tanh-form sigmoid. Replaces the Pallas
+              ``_kernel_x3cat``. Plain version: bilstm_logits_high_plain.
+  "fast"      one bf16 pass (bf16 operands, fp32 accumulate), fp32 state.
+              Replaces ``_kernel`` "x1" under fp32 compute (--precision
+              fast). Plain version: bilstm_logits_fast_plain(state_dtype=
+              torch.float32).
+  "fast_bf16" one bf16 pass, gates and state in bf16. Replaces ``_kernel``
+              "x1" under bf16 compute (runtime.compute_dtype = bfloat16).
+              Plain version: bilstm_logits_fast_plain(state_dtype=
+              torch.bfloat16).
 
 A CUDA tensor goes to the kernel or raises; a CPU tensor takes the plain
 version (that is how the CPU tests and the CPU entry point run). The gather
 index is computed here, outside the kernel, and the Linear(256->2) head runs
-here in fp32. ``LAUNCHES`` counts kernel launches per mode.
+here: in fp32 for exact and high, and for the fast modes as the TPU's
+DEFAULT-precision dot does (bf16 operands, fp32 accumulate).
+``LAUNCHES`` counts kernel launches per mode.
 """
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -33,8 +44,8 @@ from ribodetector_tpu_torch.models.bilstm import (
     token_table,
 )
 
-MODES = ("exact", "high")
-LAUNCHES = {"exact": 0, "high": 0}
+MODES = ("exact", "high", "fast", "fast_bf16")
+LAUNCHES = {mode: 0 for mode in MODES}
 _launch_lock = threading.Lock()
 
 
@@ -87,6 +98,95 @@ def bilstm_logits_high_plain(params: BiLSTMParams, tokens, lengths=None, *,
     return head(params, last_out)
 
 
+def bf16_round(x):
+    """x rounded to the nearest bf16 value (ties to even), kept in fp32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def head_default(params: BiLSTMParams, last_out):
+    """Linear(256->2) as the TPU's DEFAULT-precision dot computes it: both
+    operands rounded to bf16, the products summed in fp32, + b_out. Each
+    product of two bf16 values is exact in fp32."""
+    return torch.addmm(params.b_out, bf16_round(last_out),
+                       bf16_round(params.w_out))
+
+
+def gate_product(h, w):
+    """sum_k h[:, k] * w[k] in fp32, k ascending, one rounding per add: the
+    fast kernels' recurrent product. h [B, K] and w [K, G] hold bf16
+    values, so every product is exact in fp32 and an add of a product
+    rounds as the kernel's FMA does."""
+    acc = torch.zeros((h.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=h.device)
+    for k in range(w.shape[0]):
+        torch.addcmul(acc, h[:, k : k + 1], w[k], out=acc)
+    return acc
+
+
+def bilstm_logits_fast_plain(params: BiLSTMParams, tokens, lengths=None, *,
+                             semantics="dense", bwd_init=None,
+                             state_dtype=torch.float32):
+    """Plain torch version of the two "fast" kernels' arithmetic: the
+    Pallas x1 pass, one bf16 product per direction and step.
+
+    Both: gates = sum_k bf16(h)[k] * bf16(W_hh)[k] accumulated in fp32, k
+    ascending, + bf16(w_ih[tok] + b); the head is head_default.
+    state_dtype=torch.float32 ("fast"): h, c and the cell in fp32, sigmoid
+    1/(1+exp(-x)). state_dtype=torch.bfloat16 ("fast_bf16"): the gates,
+    every elementwise op, h and c rounded to bf16 (values held in fp32
+    tensors), sigmoid 0.5*tanh(0.5x)+0.5, the backward-carry init rounded
+    too.
+
+    The sum runs in the kernel's order, one rounding per add (each product
+    of two bf16 values is exact in fp32, so an add of a product rounds as
+    the kernel's FMA does): rounding h to bf16 every step turns a 1-ulp
+    difference in a fp32 sum into a 2^-8-relative jump in h, so two
+    summation orders drift apart, and the kernel and this version keep one.
+    It is therefore slow: hidden elementwise ops per step and direction."""
+    if state_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"state_dtype must be float32 or bfloat16, got {state_dtype}")
+    r = bf16_round
+    bf16 = state_dtype == torch.bfloat16
+    w = (r(params.w_hh_f), r(params.w_hh_b))
+
+    if bf16:
+        def sig(x):
+            return r(r(0.5 * r(torch.tanh(r(0.5 * x)))) + 0.5)
+
+        def tanh(x):
+            return r(torch.tanh(x))
+    else:
+        def sig(x):
+            return torch.reciprocal(1.0 + torch.exp(-x))
+
+        tanh = torch.tanh
+
+    def cell(h, c, gates_x, d):
+        gates = gate_product(h if bf16 else r(h), w[d]) + r(gates_x)
+        i, f, g, o = (r(gates) if bf16 else gates).chunk(4, dim=-1)
+        fc, ig = sig(f) * c, sig(i) * tanh(g)
+        c_new = r(r(fc) + r(ig)) if bf16 else fc + ig
+        h_new = sig(o) * tanh(c_new)
+        return (r(h_new) if bf16 else h_new), c_new
+
+    if bf16 and bwd_init is not None:
+        bwd_init = tuple(r(x.to(torch.float32)) for x in bwd_init)
+    last_out = bilstm_last_out(params, tokens, lengths, semantics=semantics,
+                               bwd_init=bwd_init, cell=cell)
+    return head_default(params, last_out)
+
+
+# each kernel's plain torch version, (params, tokens, lengths, *, semantics,
+# bwd_init) -> [B, 2] fp32 logits
+PLAIN = {
+    "exact": bilstm_logits,
+    "high": bilstm_logits_high_plain,
+    "fast": functools.partial(bilstm_logits_fast_plain, state_dtype=torch.float32),
+    "fast_bf16": functools.partial(bilstm_logits_fast_plain,
+                                   state_dtype=torch.bfloat16),
+}
+
+
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
@@ -117,9 +217,8 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
         return torch.zeros((0, params.w_out.shape[1]), dtype=torch.float32,
                            device=dev)
     if dev.type != "cuda":
-        plain = bilstm_logits if mode == "exact" else bilstm_logits_high_plain
-        return plain(params, tokens, lengths, semantics=semantics,
-                     bwd_init=bwd_init)
+        return PLAIN[mode](params, tokens, lengths, semantics=semantics,
+                           bwd_init=bwd_init)
 
     if tokens.dtype != torch.uint8 or not tokens.is_contiguous():
         raise ValueError("tokens must be a contiguous uint8 tensor on the card "
@@ -145,6 +244,9 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
     tokw = torch.stack([token_table(params.w_ih_f, params.b_f),
                         token_table(params.w_ih_b, params.b_b)]).contiguous()
     whh = torch.stack([params.w_hh_f, params.w_hh_b]).contiguous()
+    fast = mode in ("fast", "fast_bf16")
+    if fast:  # the single pass's operands: bf16 values, stored as fp32
+        tokw, whh = bf16_round(tokw), bf16_round(whh)
     out = torch.empty((B, 2 * HIDDEN), dtype=torch.float32, device=dev)
 
     from ribodetector_tpu_torch.ops.build import kernel_library
@@ -152,17 +254,17 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
     lib = kernel_library()
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if mode == "exact":
-            err = lib.rd_bilstm_exact(
-                _ptr(tokens), _ptr(gather), _ptr(lengths), _ptr(whh),
-                _ptr(tokw), _ptr(init), _ptr(out), B, T, int(packed), stream,
-            )
-        else:
+        if mode == "high":
             whi, wlo = split_bf16(whh)
             err = lib.rd_bilstm_high(
                 _ptr(tokens), _ptr(gather), _ptr(lengths), _ptr(whi),
                 _ptr(wlo), _ptr(tokw), _ptr(init), _ptr(out), B, T,
                 int(packed), stream,
+            )
+        else:
+            err = getattr(lib, f"rd_bilstm_{mode}")(
+                _ptr(tokens), _ptr(gather), _ptr(lengths), _ptr(whh),
+                _ptr(tokw), _ptr(init), _ptr(out), B, T, int(packed), stream,
             )
     if err != 0:
         raise RuntimeError(
@@ -171,4 +273,4 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
         )
     with _launch_lock:
         LAUNCHES[mode] += 1
-    return head(params, out)
+    return head_default(params, out) if fast else head(params, out)

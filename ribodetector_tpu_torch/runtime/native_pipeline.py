@@ -1237,7 +1237,7 @@ class NativeRunner:
                 )
                 for f in p.input
             ]
-            fhs = p._open_outputs()
+            fhs = p._open_outputs(binary=True)
             self._counts = counts
             self._writer = _Writer(
                 compress_threads=self._compress_threads(),

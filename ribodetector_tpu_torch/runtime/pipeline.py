@@ -8,22 +8,45 @@ parity with the reference:
   (quirk #6, detect.py:64-71)
 - batch size formula (quirk #9, detect.py:555-570)
 - ensure-mode reconciliation + output bucketing (runtime/ensure.py)
+- whole-file mode (`run`) and bounded-memory chunked mode (`run_with_chunks`,
+  chunk = batch_size * chunk_size reads, detect.py:371)
+- per-batch '\n'.join writes, gzip level 5 (quirks #7, #11)
 - run-summary log messages (detect.py:210-247)
 
 The run itself is the native streaming runner
-(runtime/native_pipeline.py). The classify step runs on the card through
-the hand-written CUDA kernels (ops/lstm_cuda.py), or on the CPU through the
-plain fp32 recurrence when the caller asks for the CPU (cli.main_cpu).
-Paths of the JAX package that this package does not carry yet refuse with
-an explicit "not yet ported" error instead of being ignored.
+(runtime/native_pipeline.py), or the portable runner below (`run`,
+`run_with_chunks`: Python parsing and encoding, one [rows, len] token batch
+per device call) when the config sets runtime.native=false. The classify
+step runs on the card through the hand-written CUDA kernels
+(ops/lstm_cuda.py), or on the CPU through the plain recurrence when the
+caller asks for the CPU (cli.main_cpu). Paths of the JAX package that this
+package does not carry yet refuse with an explicit "not yet ported" error
+instead of being ignored.
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from ribodetector_tpu_torch.config import PACKAGE_DIR, colors
+from ribodetector_tpu_torch.encode import PAD_TOKEN, encode_batch
+from ribodetector_tpu_torch.io import (
+    get_pairedread_chunks,
+    get_seq_chunks,
+    load_reads,
+    open_for_write,
+)
 from ribodetector_tpu_torch.runtime.batching import auto_batch_size
+from ribodetector_tpu_torch.runtime.ensure import separate_paired_reads, separate_reads
+
+try:
+    from tqdm import tqdm
+except ImportError:  # pragma: no cover
+    def tqdm(it, **kw):
+        return it
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 NOT_PORTED = "not yet ported in ribodetector_tpu_torch"
 
@@ -39,21 +62,10 @@ def resolve_state_path(path):
 def refuse_unported(config, args):
     """Raise for every flag or config key whose path this package does not
     carry, before any work starts (never silently ignore one)."""
-    rt = config.get("runtime", {})
     checks = [
         (getattr(args, "resume", False), "--resume"),
         (int(getattr(args, "hosts", 1) or 1) > 1, "--hosts > 1"),
         (getattr(args, "coordinator", None) is not None, "--coordinator"),
-        (getattr(args, "trace_dir", None), "--trace-dir"),
-        (
-            (getattr(args, "precision", None) or rt.get("precision", "high"))
-            == "fast",
-            "--precision fast",
-        ),
-        (rt.get("compute_dtype", "float32") != "float32",
-         "runtime.compute_dtype other than float32"),
-        (rt.get("native", True) is False,
-         "runtime.native=false (the portable path)"),
     ]
     for bad, what in checks:
         if bad:
@@ -64,7 +76,7 @@ class Predictor:
     """End-to-end rRNA detection over FASTQ/FASTA files.
 
     device: "cuda" (the default; the run fails when no card is visible) or
-    "cpu" (the plain fp32 recurrence, cli.main_cpu)."""
+    "cpu" (the plain recurrence, cli.main_cpu)."""
 
     def __init__(self, config, args, device="cuda"):
         self.config = config
@@ -140,9 +152,15 @@ class Predictor:
 
     def load_model(self):
         """Select the device, load weights, run the startup parity probe and
-        build the classify step."""
+        build the portable runner's classify step."""
+        import torch
+
         from ribodetector_tpu_torch.models import load_params
-        from ribodetector_tpu_torch.ops.dispatch import resolve_kernel
+        from ribodetector_tpu_torch.ops.dispatch import (
+            PRECISIONS,
+            kernel_mode,
+            resolve_kernel,
+        )
 
         self.get_state_file()
         self.device = self._select_device()
@@ -151,15 +169,24 @@ class Predictor:
         self.semantics = getattr(self.args, "semantics", None) or runtime_cfg.get(
             "semantics", "dense"
         )
+        self.compute_dtype = runtime_cfg.get("compute_dtype", "float32")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"runtime.compute_dtype must be one of {COMPUTE_DTYPES}, got "
+                f"{self.compute_dtype!r}"
+            )
         self.kernel = resolve_kernel(runtime_cfg.get("kernel", "auto"), self.device)
         # precision of the CUDA kernels: "exact" = fp32 recurrence, "high" =
         # 2-limb bf16 split accumulated in fp32 (the default, gated by the
-        # startup parity probe)
+        # startup parity probe), "fast" = one bf16 pass; bf16 compute runs
+        # the one-pass kernel with bf16 state (ops/dispatch.kernel_mode)
         self.precision_mode = getattr(self.args, "precision", None) or runtime_cfg.get(
             "precision", "high"
         )
-        if self.precision_mode not in ("exact", "high"):
+        if self.precision_mode not in PRECISIONS:
             raise ValueError(f"unknown precision mode: {self.precision_mode}")
+        if self.kernel == "cuda":  # refuse exact under bf16 before any work
+            kernel_mode(self.precision_mode, getattr(torch, self.compute_dtype))
         hidden = self.params.w_hh_f.shape[0]
         if self.kernel == "cuda" and hidden != 128:
             raise NotImplementedError(
@@ -178,6 +205,7 @@ class Predictor:
                 colors.ENDC,
             )
         )
+        self._infer = self._build_infer()
 
     def _probe_marker(self):
         """Pass-marker path: the verdict is a property of (torch version,
@@ -219,6 +247,7 @@ class Predictor:
         if (
             self.kernel != "cuda"
             or self.precision_mode != "high"
+            or self.compute_dtype != "float32"
             or self.config.get("runtime", {}).get("parity_probe", True) is False
         ):
             return
@@ -260,11 +289,13 @@ class Predictor:
         except OSError as e:  # the marker only saves a later probe
             self.logger.warning("could not write the parity marker: %s", e)
 
-    def _build_infer(self, packed_max_len, emit, pad_gap=0, fmt="b5"):
+    def _build_infer(self, packed_max_len=None, emit="logits", pad_gap=0,
+                     fmt="b5"):
         """Classify step (eager torch on the run's device).
 
-        infer(ptokens [B,(T+2)//3] uint8 base-5 packed, lengths) with
-        T = packed_max_len -- unpacked on the device
+        packed_max_len=None: infer(tokens [B,T] uint8, lengths) -- the
+        portable runner. packed_max_len=T: infer(ptokens [B,(T+2)//3] uint8
+        base-5 packed, lengths) -- unpacked on the device
         (ops.dispatch.unpack_b5_tokens); lengths is ignored for dense
         semantics.
 
@@ -273,7 +304,7 @@ class Predictor:
         ops.dispatch.unpack_b2_tokens). Tokens after unpack are identical,
         so logits/labels are bit-identical between formats.
 
-        emit: "labels" -> [B] int8 per-read argmax;
+        emit: "logits" -> [B, 2] fp32; "labels" -> [B] int8 per-read argmax;
         ("pair_labels", ensure) -> [B//2] int8 final pair labels with R1 in
         rows [0, B//2) and R2 in rows [B//2, B) -- ensure-mode
         reconciliation runs on the device (runtime/ensure.py
@@ -315,8 +346,11 @@ class Predictor:
         semantics = self.semantics
         kernel = self.kernel
         mode = self.precision_mode
+        compute_dtype = getattr(torch, self.compute_dtype)
 
-        if emit == "labels":
+        if emit == "logits":
+            post = lambda logits: logits
+        elif emit == "labels":
             post = lambda logits: torch.argmax(logits, dim=1).to(torch.int8)
         elif isinstance(emit, tuple) and emit[0] == "pair_labels":
             ensure = emit[1]
@@ -330,7 +364,8 @@ class Predictor:
         bwd_init = None
         if pad_gap and semantics == "dense":
             with torch.no_grad():
-                bwd_init = zero_prefix_state(params, pad_gap)
+                bwd_init = zero_prefix_state(params, pad_gap,
+                                             compute_dtype=compute_dtype)
 
         def classify(tokens, lengths):
             with torch.no_grad():
@@ -342,14 +377,36 @@ class Predictor:
                         semantics=semantics,
                         kernel=kernel,
                         mode=mode,
+                        compute_dtype=compute_dtype,
                         bwd_init=bwd_init,
                     )
                 )
 
+        if packed_max_len is None:
+            return classify
         max_len = packed_max_len
         if semantics == "packed":
             return lambda ptokens, lengths: classify(unpack(ptokens, max_len), lengths)
         return lambda ptokens, lengths=None: classify(unpack(ptokens, max_len), None)
+
+    # ------------------------------------------------------------ encode
+
+    def _encode_padded(self, seqs, rows):
+        """Encode to a fixed [rows, len] token matrix (pad rows with PAD_TOKEN)."""
+        tokens = np.full((rows, self.len), PAD_TOKEN, dtype=np.uint8)
+        _, lengths_n = encode_batch(seqs, self.len, out_tokens=tokens)
+        lengths = np.zeros(rows, dtype=np.int32)
+        lengths[: len(seqs)] = lengths_n
+        return tokens, lengths
+
+    def _classify(self, seqs, rows):
+        """Launch one classify step; returns the [rows, 2] logits as a tensor
+        on the run's device (the card computes while the host goes on)."""
+        import torch
+
+        tokens, lengths = self._encode_padded(seqs, rows)
+        return self._infer(torch.from_numpy(tokens).to(self.device),
+                           torch.from_numpy(lengths).to(self.device))
 
     # ------------------------------------------------------------- runs
 
@@ -412,11 +469,25 @@ class Predictor:
             )
         )
 
-        from ribodetector_tpu_torch.runtime.native_pipeline import NativeRunner
+        from ribodetector_tpu_torch.runtime.profiling import maybe_trace
 
-        NativeRunner(self).run()
+        with maybe_trace(getattr(self.args, "trace_dir", None), self.device.type):
+            if self._use_native():
+                from ribodetector_tpu_torch.runtime.native_pipeline import NativeRunner
+
+                NativeRunner(self).run()
+            elif self.chunk_size is None:
+                self.run()
+            else:
+                self.run_with_chunks()
         if self.timer.enabled:
             self.logger.info(self.timer.summary())
+
+    def _use_native(self):
+        """The native streaming runner unless the config sets
+        runtime.native=false (the portable runner). A native parser that
+        cannot be built raises; it never selects the portable runner."""
+        return self.config.get("runtime", {}).get("native", True) is not False
 
     def _log_progress(self, num_read, rate=None):
         self.logger.info(
@@ -430,12 +501,19 @@ class Predictor:
 
     # -- output file management
 
-    def _open_outputs(self):
-        """Binary output handles for the native byte-gather writers."""
+    def _open_outputs(self, binary=False):
+        """Output handles: binary for the native byte-gather writers, text
+        for the portable runner."""
         from ribodetector_tpu_torch.io.writer import open_for_write_bytes
 
-        def opener(f):
-            return open_for_write_bytes(f, gz_level=self.gz_level)
+        if binary:
+            gz_level = self.gz_level
+
+            def opener(f):
+                return open_for_write_bytes(f, gz_level=gz_level)
+
+        else:
+            opener = open_for_write
 
         fhs = {}
         if self.rrna is not None:
@@ -479,7 +557,34 @@ class Predictor:
         if first is not None:
             raise first
 
+    @staticmethod
+    def _write_bucket(fh, bucket):
+        if bucket:
+            fh.write("\n".join(bucket) + "\n")
+
+    def _emit_paired(self, fhs, r1_dict, r2_dict, counts):
+        counts["norrna"] += len(r1_dict.get(0, ()))
+        counts["rrna"] += len(r1_dict.get(1, ()))
+        self._write_bucket(fhs["norrna"][0], r1_dict.get(0, ()))
+        self._write_bucket(fhs["norrna"][1], r2_dict.get(0, ()))
+        if "rrna" in fhs:
+            self._write_bucket(fhs["rrna"][0], r1_dict.get(1, ()))
+            self._write_bucket(fhs["rrna"][1], r2_dict.get(1, ()))
+        if "unclf" in fhs:
+            counts["unclf"] += len(r1_dict.get(-1, ()))
+            self._write_bucket(fhs["unclf"][0], r1_dict.get(-1, ()))
+            self._write_bucket(fhs["unclf"][1], r2_dict.get(-1, ()))
+
+    def _emit_single(self, fhs, buckets, counts):
+        counts["norrna"] += len(buckets.get(0, ()))
+        counts["rrna"] += len(buckets.get(1, ()))
+        self._write_bucket(fhs["norrna"][0], buckets.get(0, ()))
+        if "rrna" in fhs:
+            self._write_bucket(fhs["rrna"][0], buckets.get(1, ()))
+
     def _log_summary(self, num_seqs, counts):
+        # the run's result, read by serve's run_job
+        self._final = (num_seqs, dict(counts))
         self.logger.info(
             "Processed {}{}{}{} sequences in total".format(
                 colors.BOLD, colors.OKCYAN, num_seqs, colors.ENDC
@@ -501,3 +606,139 @@ class Predictor:
                     colors.BOLD, colors.OKCYAN, counts["unclf"], colors.ENDC
                 )
             )
+
+    # -- the portable runner: batch iteration with a one-deep async pipeline
+
+    def _paired_batches(self, r1_reads, r2_reads):
+        """Classify paired reads with one fused [2B, T] device call per batch.
+
+        Yields (r1_records, r2_records, r1_logits, r2_logits) per batch; the
+        device step of batch i runs while the host encodes batch i+1 and
+        writes batch i-1.
+        """
+        bs = self.batch_size
+        n = len(r1_reads)
+        pending = None
+        for start in range(0, n, bs):
+            r1_b = r1_reads[start : start + bs]
+            r2_b = r2_reads[start : start + bs]
+            nb = len(r1_b)
+            seqs = [r[1] for r in r1_b] + [r[1] for r in r2_b]
+            logits_dev = self._classify(seqs, 2 * bs)
+            if pending is not None:
+                yield self._finalize_paired(*pending)
+            pending = (r1_b, r2_b, logits_dev, nb)
+        if pending is not None:
+            yield self._finalize_paired(*pending)
+
+    def _finalize_paired(self, r1_b, r2_b, logits_dev, nb):
+        # the encoder packs R1 rows at [0, nb) and R2 rows at [nb, 2nb)
+        # (remaining rows up to 2*batch_size are padding)
+        logits = logits_dev.cpu().numpy()
+        return r1_b, r2_b, logits[:nb], logits[nb : 2 * nb]
+
+    def _single_batches(self, reads):
+        bs = self.batch_size
+        pending = None
+        for start in range(0, len(reads), bs):
+            batch = reads[start : start + bs]
+            logits_dev = self._classify([r[1] for r in batch], bs)
+            if pending is not None:
+                yield self._finalize_single(*pending)
+            pending = (batch, logits_dev)
+        if pending is not None:
+            yield self._finalize_single(*pending)
+
+    @staticmethod
+    def _finalize_single(batch, logits_dev):
+        return batch, logits_dev.cpu().numpy()[: len(batch)]
+
+    # -- whole-file mode (detect.py:121-324)
+
+    def run(self):
+        counts = {"norrna": 0, "rrna": 0, "unclf": 0}
+        if self.is_paired:
+            # parse R1/R2 concurrently (reference uses Pool(2), detect.py:131-132)
+            with ThreadPoolExecutor(2) as ex:
+                r1_reads, r2_reads = ex.map(load_reads, self.input)
+            num_seqs = min(len(r1_reads), len(r2_reads))
+            r1_reads, r2_reads = r1_reads[:num_seqs], r2_reads[:num_seqs]
+            self.logger.info(
+                "{}{}{}{} sequences loaded!".format(
+                    colors.BOLD, colors.OKCYAN, num_seqs, colors.ENDC
+                )
+            )
+            fhs = self._open_outputs()
+            try:
+                num_batches = -(-num_seqs // self.batch_size) if num_seqs else 0
+                for r1_b, r2_b, l1, l2 in tqdm(
+                    self._paired_batches(r1_reads, r2_reads), total=num_batches
+                ):
+                    r1_dict, r2_dict = separate_paired_reads(
+                        r1_b, l1, r2_b, l2, self.args.ensure
+                    )
+                    self._emit_paired(fhs, r1_dict, r2_dict, counts)
+                self._log_summary(num_seqs, counts)
+            finally:
+                # always close (serve keeps the process alive across failed
+                # jobs; leaked handles leave .gz without trailers)
+                self._close_outputs(fhs)
+        else:
+            reads = load_reads(*self.input)
+            num_seqs = len(reads)
+            self.logger.info(
+                "{}{}{}{} sequences loaded!".format(
+                    colors.BOLD, colors.OKCYAN, num_seqs, colors.ENDC
+                )
+            )
+            fhs = self._open_outputs()
+            try:
+                num_batches = -(-num_seqs // self.batch_size) if num_seqs else 0
+                for batch, logits in tqdm(
+                    self._single_batches(reads), total=num_batches
+                ):
+                    buckets = separate_reads(batch, logits.argmax(1))
+                    self._emit_single(fhs, buckets, counts)
+                self._log_summary(num_seqs, counts)
+            finally:
+                self._close_outputs(fhs)
+
+    # -- chunked low-memory mode (detect.py:326-523)
+
+    def run_with_chunks(self):
+        counts = {"norrna": 0, "rrna": 0, "unclf": 0}
+        num_read = 0
+        fhs = None
+        chunk_reads = self.batch_size * self.chunk_size
+        try:
+            if self.is_paired:
+                for r1_chunk, r2_chunk in get_pairedread_chunks(
+                    *self.input, chunk_size=chunk_reads
+                ):
+                    if fhs is None:
+                        fhs = self._open_outputs()
+                    n = min(len(r1_chunk), len(r2_chunk))
+                    num_read += n
+                    for r1_b, r2_b, l1, l2 in self._paired_batches(
+                        r1_chunk[:n], r2_chunk[:n]
+                    ):
+                        r1_dict, r2_dict = separate_paired_reads(
+                            r1_b, l1, r2_b, l2, self.args.ensure
+                        )
+                        self._emit_paired(fhs, r1_dict, r2_dict, counts)
+                    self._log_progress(num_read)
+            else:
+                for chunk in get_seq_chunks(*self.input, chunk_size=chunk_reads):
+                    if fhs is None:
+                        fhs = self._open_outputs()
+                    num_read += len(chunk)
+                    for batch, logits in self._single_batches(chunk):
+                        buckets = separate_reads(batch, logits.argmax(1))
+                        self._emit_single(fhs, buckets, counts)
+                    self._log_progress(num_read)
+            if fhs is None:
+                fhs = self._open_outputs()
+            self._log_summary(num_read, counts)
+        finally:
+            if fhs is not None:
+                self._close_outputs(fhs)

@@ -1,4 +1,4 @@
-"""Per-stage wall-time counters.
+"""Per-stage wall-time counters and the --trace-dir profiler trace.
 
 The reference has no tracing at all (SURVEY.md 5: only tqdm progress bars).
 Here every run can report where time went via --profile.
@@ -15,6 +15,7 @@ whose seconds OVERLAP the main-thread rows rather than adding to wall.
 Worker threads are named rd-<role> at creation so roles group cleanly.
 """
 
+import os
 import threading
 import time
 from collections import defaultdict
@@ -120,3 +121,28 @@ class StageTimer:
                 f"{role}:{name}": round(t, 2)
                 for (role, name), t in self.worker_totals.items()
             }
+
+
+@contextmanager
+def maybe_trace(trace_dir, device_type="cpu"):
+    """torch.profiler trace of the block when a directory is given: host
+    activity, plus the card's kernels and copies (CUPTI) when the run is on
+    the card. On exit the Chrome trace is written into trace_dir as
+    trace_<pid>_<ms>.json (open it in Perfetto or chrome://tracing; events
+    of category "kernel" are device busy time)."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device_type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+        if device_type == "cuda":
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        trace_dir, f"trace_{os.getpid()}_{int(time.time() * 1000)}.json"))

@@ -35,6 +35,7 @@ setup(
             # the PyTorch/CUDA port: on the card, or pinned to the CPU
             "ribodetector_tpu_torch=ribodetector_tpu_torch.cli:main",
             "ribodetector_tpu_torch_cpu=ribodetector_tpu_torch.cli:main_cpu",
+            "ribodetector_tpu_torch_serve=ribodetector_tpu_torch.serve:main",
         ]
     },
 )

@@ -4,9 +4,12 @@ The same numpy-seeded tokens and parameters (the shipped npz, and random
 weights of the same shapes) go through the JAX lax.scan forward and the
 port's plain torch forward. Tolerance: max-abs <= 1e-5 on fp32 logits (both
 are fp32 recurrences; only the summation order of the 128-term dot products
-differs) with identical argmax.
+differs) with identical argmax. The bf16 forward (compute_dtype=bfloat16,
+the CPU path of the bf16 config) is held to the JAX scan in bf16 at the
+tolerance stated in its tests.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -81,6 +84,63 @@ def test_zero_prefix_state_matches_jax(both_params, k):
     assert th.shape == tc.shape == (1, 128)
     assert np.abs(th.numpy() - np.asarray(jh)).max() <= 1e-6
     assert np.abs(tc.numpy() - np.asarray(jc)).max() <= 1e-6
+
+
+def _both_bf16(jp, tp, tok, lengths, semantics, k=None):
+    jinit = tinit = None
+    if k is not None:
+        jinit = jb.zero_prefix_state(jp, k, compute_dtype=jnp.bfloat16)
+        tinit = tb.zero_prefix_state(tp, k, compute_dtype=torch.bfloat16)
+    ref = np.asarray(jb.bilstm_logits(
+        jp, jnp.asarray(tok), jnp.asarray(lengths), semantics=semantics,
+        bwd_init=jinit, compute_dtype=jnp.bfloat16,
+        precision=jax.lax.Precision.DEFAULT))
+    got = tb.bilstm_logits(tp, torch.from_numpy(tok), torch.from_numpy(lengths),
+                           semantics=semantics, bwd_init=tinit,
+                           compute_dtype=torch.bfloat16).numpy()
+    return got, ref
+
+
+@pytest.mark.parametrize("semantics,k", [("dense", None), ("packed", None),
+                                         ("dense", 9)])
+def test_bf16_logits_match_jax_scan(both_params, batch, semantics, k):
+    """The bf16 scan: every op rounds to bf16 on both sides, and the logits
+    come out of a bf16 head (one ulp of a logit in [2, 4) is 2^-6). The two
+    sides' bf16 dots sum in different fp32 orders before rounding, and a
+    flipped rounding of h compounds over T. Measured max-abs: 0.066 (npz
+    weights, logits up to 2.2: four ulps) and 0.0059 (random weights);
+    held to 0.125, with identical argmax on every read whose JAX margin is
+    >= 0.25."""
+    jp, tp = both_params
+    got, ref = _both_bf16(jp, tp, *batch, semantics, k)
+    assert got.shape == ref.shape == (B, 2) and got.dtype == np.float32
+    assert np.abs(got - ref).max() <= 0.125
+    sure = np.abs(ref[:, 1] - ref[:, 0]) >= 0.25
+    np.testing.assert_array_equal(got.argmax(1)[sure], ref.argmax(1)[sure])
+
+
+def test_bf16_differs_from_fp32(both_params, batch):
+    """bf16 compute really rounds (the fp32 default is untouched)."""
+    jp, tp = both_params
+    tok = torch.from_numpy(batch[0])
+    fp32 = tb.bilstm_logits(tp, tok)
+    assert torch.equal(fp32, tb.bilstm_logits(tp, tok, compute_dtype=torch.float32))
+    bf16 = tb.bilstm_logits(tp, tok, compute_dtype=torch.bfloat16)
+    assert bf16.dtype == torch.float32
+    assert 0 < (bf16 - fp32).abs().max().item() <= 0.5
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 36])
+def test_zero_prefix_state_bf16_matches_jax(both_params, k):
+    """The bf16 backward-carry init. Measured max-abs 2^-7 (k=36: one ulp of
+    a c in [1, 2)); held to two such ulps."""
+    jp, tp = both_params
+    jh, jc = jb.zero_prefix_state(jp, k, compute_dtype=jnp.bfloat16)
+    th, tc = tb.zero_prefix_state(tp, k, compute_dtype=torch.bfloat16)
+    assert th.dtype == tc.dtype == torch.bfloat16
+    assert th.shape == tc.shape == (1, 128)
+    for t, j in ((th, jh), (tc, jc)):
+        assert np.abs(t.float().numpy() - np.asarray(j, np.float32)).max() <= 2 ** -6
 
 
 def test_dense_gather_index_rules():

@@ -3,7 +3,9 @@ four ensure modes, plain and gz (inputs and outputs). The JAX CLI runs once
 per ensure mode, on the plain inputs, in a module-scoped fixture; the port
 runs on plain and on gz files, and its outputs must be byte-identical to
 JAX's (gz: decompressed content). See test_torch_cli.py for the margin
-precondition that makes byte identity well-defined."""
+precondition that makes byte identity well-defined. -e both also runs at
+--precision fast and through the portable runner (runtime.native=false,
+-m 2), whole-file and chunked."""
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from tests.test_torch_cli import (
     assert_identical,
     assert_margins,
     outputs,
+    run_both,
+    runtime_configs,
     write_fastq,
 )
 
@@ -61,3 +65,18 @@ def test_paired_matches_jax(tmp_path, pairs, jax_outputs, ensure, io):
     flags, tfiles = outputs(tmp_path, "torch", True, io == "gz", ensure)
     main_cpu(["-i", *files[io], *COMMON, "-e", ensure, *flags])
     assert_identical(jax_outputs[ensure], tfiles)
+
+
+def test_paired_precision_fast(tmp_path, pairs):
+    _, files = pairs
+    assert_identical(*run_both(tmp_path, files["gz"], extra=["--precision", "fast"],
+                               paired=True, ensure="both", gz_out=True))
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_paired_portable_runner(tmp_path, pairs, chunked):
+    _, files = pairs
+    common = ["-l", str(LEN), "-m", "2"] + (["--chunk_size", "1"] if chunked else [])
+    assert_identical(*run_both(tmp_path, files["gz"], paired=True, ensure="both",
+                               gz_out=True, common=common,
+                               configs=runtime_configs(tmp_path, native=False)))

@@ -89,3 +89,35 @@ def test_kernel_choice_follows_the_device(ref_params_path):
     torch.testing.assert_close(got, tb.bilstm_logits(params, tok), rtol=0, atol=0)
     with pytest.raises(ValueError, match="needs the card"):
         td.classify_logits(params, tok, kernel="cuda")
+
+
+def test_kernel_mode_table():
+    """Which CUDA kernel each precision runs under each compute dtype, as
+    the JAX pipeline maps them onto the Pallas modes (x3 -> x1 under bf16;
+    x6 refused under bf16)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for mode in ("exact", "high", "fast"):
+        assert td.kernel_mode(mode, f32) == mode
+    assert td.kernel_mode("high", bf16) == "fast_bf16"
+    assert td.kernel_mode("fast", bf16) == "fast_bf16"
+    with pytest.raises(ValueError, match="requires float32"):
+        td.kernel_mode("exact", bf16)
+    with pytest.raises(ValueError, match="unknown precision"):
+        td.kernel_mode("turbo", f32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        td.kernel_mode("fast", torch.float16)
+
+
+@pytest.mark.parametrize("mode", td.PRECISIONS)
+def test_cpu_classify_runs_the_scan_in_the_compute_dtype(ref_params_path, mode):
+    """On the CPU the precision does not change the plain recurrence, as the
+    JAX package's CPU scan ignores its precision mode; the compute dtype
+    does (exact under bf16 included: only the card refuses it)."""
+    params = tb.load_params(ref_params_path)
+    tok = torch.from_numpy(np.random.default_rng(3).integers(0, 5, (6, 15)).astype(np.uint8))
+    for dt in (torch.float32, torch.bfloat16):
+        got = td.classify_logits(params, tok, mode=mode, compute_dtype=dt)
+        torch.testing.assert_close(got, tb.bilstm_logits(params, tok, compute_dtype=dt),
+                                   rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown precision"):
+        td.classify_logits(params, tok, mode="fast_bf16")
