@@ -8,15 +8,29 @@ Phases, one JSON line each; any failure exits non-zero:
 
   env       torch / CUDA versions and the card's name and power limit
   build     csrc/bilstm.cu (nvcc, sm_90a) and native/fastx.cpp (g++), from
-            the checkout's sources, built concurrently into _build/
+            the checkout's sources, built concurrently into _build/; the
+            ptxas register/spill report, and from `cuobjdump -sass` each
+            kernel's tensor-core instructions (HMMA/HGMMA), the instructions
+            of one cell evaluation (from the loop of the mode's one-cell
+            micro-kernel, rd_cell_floor_<mode>, never launched) and, as a
+            diagnostic, those of each kernel's step loop per cell
   kernels   each of the four CUDA kernels (exact, high, fast, fast_bf16)
             against its plain torch version on the card (real weights,
-            B = 16384+37, three settings), high against exact under the
-            startup probe's gate, the fast kernels' flips against exact
-            (information, not a gate), and the fast plain versions' times
+            B = 16384+37, three settings): exact and high to max-abs <= 1e-4,
+            the tensor-core fast kernels to FAST_GATE (lstm_cuda.fast_gate:
+            mean-abs, 99.9th percentile, max-abs against the yardstick, no
+            flip above a margin), beside the yardstick (the plain version
+            summed in 16-wide k blocks) on the same reads, and once more at
+            the path's batch (262144 reads, T=100), where the fast plain
+            versions are timed; the fast kernels' row invariance (shuffled
+            reads, and reads in a batch of another size, bit for bit); high
+            against exact under the startup probe's gate, and the fast
+            kernels' flips against exact (information, not a gate)
   timing    kernel and plain times, the bound, and the cuDNN LSTM yardstick
             (fp32 for exact/high, bf16 for the fast kernels) at B=262144,
-            T=100
+            T=100; the bound is the largest of the bytes, the products at
+            their type's peak, and the cell: its instructions at the CUDA
+            cores' issue rate or its MUFU ones at theirs
   main      the CLI main path (paired gz, -l 100, -e both) over 2 x 262144
             reads with a cleared parity-marker cache, its partition checked
             read for read against the plain exact labels on the card, and
@@ -26,7 +40,10 @@ Phases, one JSON line each; any failure exits non-zero:
             --concurrency 2) over a 2 x 262144-read paired gz job, the same
             job again (memo reuse), a malformed line, a single-end job of
             40-99 bp reads with N calls and an -e norrna job; every job's
-            partition checked against the fast kernel called directly
+            partition checked against the fast kernel called directly (reads
+            run at T=100: every label; 64-bucket reads, whose backward carry
+            starts from the scan's state: no flip at a margin >= 5e-3), and
+            the stage timer of its jobs (the CLI's --profile), on in-process
   config    the bf16 config (runtime.compute_dtype=bfloat16, the fast_bf16
             kernel) and the portable runner (runtime.native=false), each a
             CLI run over 2 x 16384 pairs checked against plain exact labels
@@ -42,6 +59,8 @@ import gzip
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -64,6 +83,16 @@ MODES = ("exact", "high", "fast", "fast_bf16")
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+# the CUDA cores issue one instruction per lane and clock (67 TFLOP/s is one
+# fp32 FMA, two flops, per lane and clock); the MUFU unit (exp2, reciprocal)
+# takes 16 per SM and clock against the fp32 pipe's 128 (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability 9.0)
+CUDA_CORE_INSTR_PER_S = FP32_FLOPS / 2
+MUFU_PER_S = CUDA_CORE_INSTR_PER_S / 8
+# cell evaluations one thread makes per step of each kernel's loop
+# (csrc/bilstm.cu: RB x RJ for exact/high; TM reads x 8 units / 32 lanes
+# for the tensor-core kernels)
+CELLS_PER_THREAD_STEP = {"exact": 16, "high": 16, "fast": 16, "fast_bf16": 16}
 H = 128
 G = 4 * H
 LIB_CHUNK = 16384  # reads per cuDNN call of the library yardstick
@@ -112,15 +141,17 @@ def random_tokens(rng, B, T):
 
 
 def compare(got, ref):
-    """max-abs, argmax flips, and flips at reference margins >= 1e-4/5e-3."""
+    """max-abs, mean-abs, argmax flips, and flips at reference margins >=
+    1e-4, 5e-3, 0.1 and 0.5, with the largest flipped margin."""
     flipped = got.argmax(1) != ref.argmax(1)
     margin = np.abs(ref[:, 1] - ref[:, 0])
-    return {
-        "max_abs": float(np.abs(got - ref).max()),
-        "flips": int(flipped.sum()),
-        "flips_m1e-4": int(flipped[margin >= 1e-4].sum()),
-        "flips_m5e-3": int(flipped[margin >= 5e-3].sum()),
-    }
+    diff = np.abs(got - ref)
+    r = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+         "flips": int(flipped.sum()),
+         "max_flip_margin": float(margin[flipped].max(initial=0.0))}
+    for m in ("1e-4", "5e-3", "0.1", "0.5"):
+        r[f"flips_m{m}"] = int(flipped[margin >= float(m)].sum())
+    return r
 
 
 def phase_env():
@@ -136,7 +167,114 @@ def phase_env():
     return smi
 
 
+SASS_FUNCTION = re.compile(r"Function : (\S+)")
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+SASS_KERNEL = re.compile(r"bilstm_(?:tc_)?kernelILi(\d)E")  # template MODE
+SASS_CELL = re.compile(r"^rd_cell_floor_(\w+)$")  # the cell's micro-kernels
+
+
+def opcode(text):
+    parts = text.split()
+    return parts[1] if parts[0].startswith("@") and len(parts) > 1 else parts[0]
+
+
+def read_sass(lib_path):
+    """({mode or "cell:" + mode: [(address, instruction)]}, None) from
+    `cuobjdump -sass` of the kernel library, or (None, why not)."""
+    from ribodetector_tpu_torch.ops import build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None, "cuobjdump not found (next to nvcc or on PATH)"
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        return None, f"cuobjdump failed: {proc.stderr.strip()[-300:]}"
+    funcs, cur = {}, None
+    for line in proc.stdout.splitlines():
+        m = SASS_FUNCTION.search(line)
+        if m:
+            k = SASS_KERNEL.search(m.group(1))
+            cf = SASS_CELL.match(m.group(1))
+            cur = MODES[int(k.group(1))] if k else ("cell:" + cf.group(1) if cf else None)
+            if cur:
+                funcs[cur] = []
+            continue
+        m = SASS_INSN.search(line)
+        if m and cur:
+            funcs[cur].append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs, None
+
+
+def branches(ops):
+    """(address, target) of every branch with a literal target."""
+    out = []
+    for a, op, t in ops:
+        m = re.search(r"0x([0-9a-f]+)", t) if op.startswith("BRA") else None
+        if m:
+            out.append((a, int(m.group(1), 16)))
+    return out
+
+
+def sass_stats(mode, insns):
+    """Tensor-core instructions of one kernel, and, as a diagnostic, the
+    instructions of its step loop (the widest backward branch) that run on
+    the CUDA cores per cell evaluation: those outside any loop nested in it
+    (exact and high stage and multiply W_hh in such loops) and other than
+    HMMA/HGMMA/LDSM (the tensor-core product) or NOP. That count takes in
+    the step's own work (token load, ldmatrix addresses, barrier, hold and
+    capture), so it is the kernel's cost per cell, not the bound's."""
+    ops = [(a, opcode(t), t) for a, t in insns]
+    loops = [(b, a) for a, b in branches(ops) if b <= a]
+    r = {"insns": len(ops),
+         "hmma": sum(op.startswith("HMMA") for _, op, _ in ops),
+         "hgmma": sum(op.startswith("HGMMA") for _, op, _ in ops)}
+    if not loops:
+        return r
+    lo, hi = max(loops, key=lambda l: l[1] - l[0])
+    inner = [l for l in loops if l != (lo, hi) and lo <= l[0] and l[1] <= hi]
+    body = [op for a, op, _ in ops if lo <= a <= hi]
+    core = [op for a, op, _ in ops if lo <= a <= hi
+            and not any(x <= a <= y for x, y in inner)
+            and not op.startswith(("HMMA", "HGMMA", "LDSM", "NOP"))]
+    r.update(step_loop_insns=len(body), nested_loops=len(inner),
+             cuda_core_insns=len(core),
+             step_loop_insns_per_cell=len(core) / CELLS_PER_THREAD_STEP[mode])
+    return r
+
+
+def cell_stats(insns):
+    """The instructions of one cell evaluation, from the loop of the mode's
+    micro-kernel (rd_cell_floor_<mode>, one cell per iteration): all but
+    the loop's own control (its backward branch, and the counter's add and
+    compare) and the IEEE division's slow path (a call that a forward branch
+    skips unless an operand is out of range), with the MUFU ones (exp2,
+    reciprocal) apart."""
+    ops = [(a, opcode(t), t) for a, t in insns]
+    back = [(b, a) for a, b in branches(ops) if b < a]  # not the final BRA-to-self
+    if len(back) != 1:
+        return None
+    lo, hi = back[0]
+    loop = [(a, op, t) for a, op, t in ops if lo <= a < hi]
+    cmp = [(a, t) for a, op, t in loop if op.startswith("ISETP")][-1]
+    regs = set(re.findall(r"\bU?R\d+\b", cmp[1]))
+    inc = [a for a, op, t in loop if op.startswith(("IADD3", "UIADD3", "VIADD"))
+           and re.findall(r"\bU?R\d+\b", t)[0] in regs][-1]
+    calls = [a for a, op, _ in ops if op.startswith("CALL")]
+    slow = [(a, b) for a, b in branches(ops)
+            if lo <= a < b <= hi and any(a < x < b for x in calls)]
+    body = [op for a, op, _ in loop if a not in (cmp[0], inc)
+            and not any(x < a < y for x, y in slow) and op != "NOP"]
+    hist = {}
+    for op in body:
+        hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+    return {"insns": len(body), "mufu": hist.get("MUFU", 0),
+            "opcodes": dict(sorted(hist.items()))}
+
+
 def phase_build():
+    """Builds both libraries; returns {mode: SASS stats} (empty without
+    cuobjdump)."""
     from ribodetector_tpu_torch.ops import build
 
     def timed(fn):
@@ -154,13 +292,86 @@ def phase_build():
              if "registers" in l or "spill" in l or "Compiling entry" in l]
     emit("build", kernels=os.path.relpath(kpath, REPO), kernels_s=round(ks, 3),
          fastx=os.path.relpath(fpath, REPO), fastx_s=round(fs, 3), ptxas=ptxas)
+    funcs, why = read_sass(kpath)
+    if funcs is None:
+        emit("build", sass=None, note=why + ": no HMMA count and no cell floor")
+        return {}
+    stats = {mode: sass_stats(mode, funcs.get(mode, [])) for mode in MODES}
+    for mode in MODES:
+        stats["cell:" + mode] = cell_stats(funcs.get("cell:" + mode, []))
+        check(stats["cell:" + mode] is not None,
+              f"no single loop in the {mode} cell's micro-kernel")
+    emit("build", sass=stats)
+    for mode in ("fast", "fast_bf16"):
+        check(stats[mode]["hmma"] + stats[mode]["hgmma"] > 0,
+              f"the {mode} kernel holds no tensor-core instruction")
+    return stats
+
+
+def row_invariance(params, mode, tok, lens, sem, bwd):
+    """Bit for bit: the reads shuffled, and the first 1000 of them after
+    333 other reads (a batch of another size), against one call over the
+    batch as it is."""
+    import torch
+
+    from ribodetector_tpu_torch.ops.lstm_cuda import bilstm_logits_cuda
+
+    B, T = tok.shape
+    rng = np.random.default_rng(13)
+    dev = tok.device
+    perm = torch.from_numpy(rng.permutation(B)).to(dev)
+    other_tok, other_len = random_tokens(rng, 333, T)
+    n = min(1000, B)
+    mixed_tok = torch.cat([torch.from_numpy(other_tok).to(dev), tok[:n]])
+    mixed_len = torch.cat([torch.from_numpy(other_len).to(dev), lens[:n]])
+    kw = dict(semantics=sem, mode=mode, bwd_init=bwd)
+    base = bilstm_logits_cuda(params, tok, lens, **kw)
+    shuffled = bilstm_logits_cuda(params, tok[perm].contiguous(), lens[perm], **kw)
+    mixed = bilstm_logits_cuda(params, mixed_tok, mixed_len, **kw)[333:]
+    return {"shuffled": bool(torch.equal(shuffled, base[perm])),
+            "other_batch": bool(torch.equal(mixed, base[:n]))}
+
+
+def gate_fast(params, mode, tok, lens, sem, bwd, got, setting):
+    """A fast kernel's logits against its plain version under FAST_GATE,
+    beside the yardstick; emits the readings and fails outside the gate.
+    Returns (readings, the plain version's time in ms: one call, CUDA
+    events)."""
+    import torch
+
+    from ribodetector_tpu_torch.ops.lstm_cuda import (
+        FAST_GATE,
+        PLAIN,
+        bilstm_logits_fast_plain,
+        fast_gate,
+    )
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = PLAIN[mode](params, tok, lens, semantics=sem, bwd_init=bwd)
+    end.record()
+    torch.cuda.synchronize()
+    yard = bilstm_logits_fast_plain(
+        params, tok, lens, semantics=sem, bwd_init=bwd, k_block=16,
+        state_dtype=torch.bfloat16 if mode == "fast_bf16" else torch.float32)
+    r = fast_gate(mode, got, ref.cpu().numpy(), yard.cpu().numpy())
+    emit("kernels", kernel=mode, setting=setting, B=tok.shape[0], vs="plain",
+         gate=FAST_GATE[mode], **r)
+    check(r["within_gate"], f"{mode} kernel is outside its gate against its "
+                            f"plain version ({setting}): {r}")
+    return r, start.elapsed_time(end)
 
 
 def phase_kernels(params, quick):
     import torch
 
     from ribodetector_tpu_torch.models.bilstm import zero_prefix_state
-    from ribodetector_tpu_torch.ops.lstm_cuda import PLAIN, bilstm_logits_cuda
+    from ribodetector_tpu_torch.ops.lstm_cuda import (
+        FAST_GATE,
+        PLAIN,
+        bilstm_logits_cuda,
+    )
 
     dev = params.w_hh_f.device
     rng = np.random.default_rng(7)
@@ -186,38 +397,49 @@ def phase_kernels(params, quick):
                     bwd = init36_bf16 if mode == "fast_bf16" else init36
                 got = bilstm_logits_cuda(params, tok, lens, semantics=sem,
                                          mode=mode, bwd_init=bwd)
-                torch.cuda.synchronize()
-                ref = PLAIN[mode](params, tok, lens, semantics=sem, bwd_init=bwd)
-                got, ref = got.cpu().numpy(), ref.cpu().numpy()
+                got = got.cpu().numpy()
                 check(got.shape == (B, 2) and np.isfinite(got).all(),
                       f"{mode} {name}: shape {got.shape} or non-finite logits")
-                r = compare(got, ref)
-                emit("kernels", kernel=mode, setting=name, B=B, vs="plain", **r)
-                check(r["max_abs"] <= 1e-4 and r["flips_m1e-4"] == 0,
-                      f"{mode} kernel disagrees with its plain version: {r}")
+                if mode in FAST_GATE:
+                    # the tensor cores sum in their own order: held to the
+                    # gate, beside what a change of order alone does
+                    r, _ = gate_fast(params, mode, tok, lens, sem, bwd, got, name)
+                    inv = row_invariance(params, mode, tok, lens, sem, bwd)
+                    emit("kernels", kernel=mode, setting=name, B=B,
+                         row_invariance=inv)
+                    check(all(inv.values()),
+                          f"{mode}: a read's logits depend on its batch: {inv}")
+                else:
+                    ref = PLAIN[mode](params, tok, lens, semantics=sem, bwd_init=bwd)
+                    r = compare(got, ref.cpu().numpy())
+                    emit("kernels", kernel=mode, setting=name, B=B, vs="plain", **r)
+                    check(r["max_abs"] <= 1e-4 and r["flips_m1e-4"] == 0,
+                          f"{mode} kernel disagrees with its plain version: {r}")
                 max_err[mode] = max(max_err[mode], r["max_abs"])
                 out[mode] = got
-                if mode.startswith("fast") and name == "T100_dense":
-                    # the fast plain versions sum in the kernel's order, one
-                    # elementwise op per product: timed once, at this B
-                    plain_ms[mode] = cuda_time_ms(
-                        lambda: PLAIN[mode](params, tok, semantics="dense"), 1)
             r = compare(out["high"], out["exact"])
             gate = r["flips_m5e-3"] == 0 and r["flips"] <= max(2, 1e-4 * B)
             emit("kernels", kernel="high", setting=name, B=B, vs="exact",
                  probe_gate=gate, **r)
             check(gate, f"high vs exact fails the probe gate: {r}")
-            for mode in ("fast", "fast_bf16"):
+            for mode in FAST_GATE:
                 # what a user of the fast modes gives up: not a gate
-                r = compare(out[mode], out["exact"])
-                margin = np.abs(out["exact"][:, 1] - out["exact"][:, 0])
-                flipped = out[mode].argmax(1) != out["exact"].argmax(1)
                 emit("kernels", kernel=mode, setting=name, B=B, vs="exact",
-                     max_flip_margin=float(margin[flipped].max(initial=0.0)), **r)
-    return max_err, {"plain_ms": plain_ms, "plain_B": B}
+                     **compare(out[mode], out["exact"]))
+        # the gate once more at the batch of one device call of the main
+        # path (the timing batch): its terms must not depend on the number
+        # of reads, and here the plain fast versions are timed (one call)
+        Bp = 16384 if quick else 262144
+        tok = torch.from_numpy(random_tokens(np.random.default_rng(11), Bp, 100)[0]).to(dev)
+        for mode in FAST_GATE:
+            got = bilstm_logits_cuda(params, tok, semantics="dense", mode=mode)
+            r, plain_ms[mode] = gate_fast(params, mode, tok, None, "dense", None,
+                                          got.cpu().numpy(), "T100_dense_path_batch")
+            max_err[mode] = max(max_err[mode], r["max_abs"])
+    return max_err, {"plain_ms": plain_ms, "plain_B": Bp}
 
 
-def phase_timing(params, quick, fast_plain):
+def phase_timing(params, quick, fast_plain, sass):
     """Times at the main path's full device call: 2 x 131072 reads, T=100."""
     import torch
 
@@ -283,25 +505,38 @@ def phase_timing(params, quick, fast_plain):
                    "bf16": float((library(lstm_bf16, torch.bfloat16) - exact).abs().max())}
         del onehot, exact
         torch.cuda.empty_cache()
-    # least time: bytes each input read once and the output written once
-    # (tokens, gather, weights in; last_out [B, 256] fp32 out), against the
-    # multiply-adds at the peak rate of their type: fp32 for exact, bf16
-    # tensor cores for high's limbs and the fast modes' single pass
-    nbytes = B * T + 4 * B + 4 * (2 * H * G + 2 * 5 * G) + 4 * B * 2 * H
+    # least time, the largest of: bytes, each input read once and the
+    # output written once (tokens, gather, W_hh in its type, the token table;
+    # last_out [B, 256] fp32 out); the multiply-adds at the peak rate of
+    # their type (fp32 for exact, bf16 tensor cores for high's limbs and the
+    # fast modes' single pass); and the cell's evaluations (2*T*H a read) on
+    # the CUDA cores: the instructions of one cell in the mode's micro-kernel
+    # (read from the SASS in the build phase) at the issue rate, or its MUFU
+    # instructions at theirs, whichever takes longer
+    w_bytes = {"exact": 4, "high": 8, "fast": 2, "fast_bf16": 2}
     flops = 2.0 * 2 * T * G * H * B
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    cells = 2.0 * T * H * B
     ops_ms = {"exact": 1e3 * flops / FP32_FLOPS,
               "high": 1e3 * 3 * flops / BF16_TC_FLOPS,
               "fast": 1e3 * flops / BF16_TC_FLOPS,
               "fast_bf16": 1e3 * flops / BF16_TC_FLOPS}
     for mode in MODES:
+        nbytes = (B * T + 4 * B + w_bytes[mode] * 2 * H * G + 4 * 2 * 5 * G
+                  + 4 * B * 2 * H)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        cell = sass.get("cell:" + mode)
+        cell_ms = None if cell is None else 1e3 * cells * max(
+            cell["insns"] / CUDA_CORE_INSTR_PER_S, cell["mufu"] / MUFU_PER_S)
         lib = "bf16" if mode.startswith("fast") else "fp32"
         res[mode]["library_ms"] = lib_ms[lib]
-        res[mode]["bound_ms"] = max(bytes_ms, ops_ms[mode])
-        res[mode]["bound_by"] = "bytes" if bytes_ms >= ops_ms[mode] else "operations"
+        res[mode]["bound_ms"] = max(bytes_ms, ops_ms[mode], cell_ms or 0.0)
+        res[mode]["bound_by"] = ("bytes" if bytes_ms >= max(ops_ms[mode], cell_ms or 0.0)
+                                 else "operations")
         emit("timing", kernel=mode, B=B, T=T, library=f"cudnn_{lib}",
              library_err=lib_err[lib], library_calls=-(-B // LIB_CHUNK),
-             bytes_ms=bytes_ms, ops_ms=ops_ms[mode],
+             bytes_ms=bytes_ms, products_ms=ops_ms[mode], cell_ms=cell_ms,
+             cell_insns=cell and cell["insns"], cell_mufu=cell and cell["mufu"],
+             step_loop_insns_per_cell=sass.get(mode, {}).get("step_loop_insns_per_cell"),
              fp32_cuda_core_ms=1e3 * flops / FP32_FLOPS, **res[mode])
     return res
 
@@ -525,12 +760,19 @@ def phase_serve(params, tmp):
     lines = [json.dumps(j) + "\n" for j in jobs]
     lines.insert(2, '{"id": "malformed", "input": [\n')
 
-    # every classify step the server builds; a repeated key would mean the
-    # second same-shape job missed the memo
-    built = []
-    build = Predictor._build_infer_locked
-    Predictor._build_infer_locked = (
-        lambda self, key: built.append(key) or build(self, key))
+    # every classify step the server builds (a repeated key would mean the
+    # second same-shape job missed the memo), and the stage timer that the
+    # jobs of one weight file share, turned on as the CLI's --profile does
+    built, timers = [], []
+    build, load = Predictor._build_infer_locked, Predictor.load_model
+
+    def load_timed(self):
+        self.timer.enabled = True
+        timers.append(self.timer)
+        return load(self)
+
+    Predictor._build_infer_locked = lambda self, key: built.append(key) or build(self, key)
+    Predictor.load_model = load_timed
     lstm_cuda.reset_launches()
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -538,7 +780,7 @@ def phase_serve(params, tmp):
                stdin=lines, stdout=out)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    Predictor._build_infer_locked = build
+    Predictor._build_infer_locked, Predictor.load_model = build, load
     launches = dict(lstm_cuda.LAUNCHES)
 
     resps = [json.loads(l) for l in out.getvalue().splitlines()]
@@ -574,6 +816,11 @@ def phase_serve(params, tmp):
     emit("serve", requests=len(lines), jobs_ok=4, wall_s=wall,
          jobs_per_s=4 / wall, reads=reads, reads_per_s=reads / wall,
          data_gen_s=gen_s, launches=launches, steps_built=len(built))
+    # the stage breakdown, seconds per thread role and stage summed over the
+    # threads (the jobs run on rd-job threads, two at once)
+    for timer in timers:
+        emit("serve", profile={**{k: round(v, 4) for k, v in timer.totals.items()},
+                               **timer.worker_seconds()})
     return launches
 
 
@@ -675,12 +922,12 @@ def main(argv):
     import ribodetector_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     smi = phase_env()
-    phase_build()
+    sass = phase_build()
     from ribodetector_tpu_torch.models import load_params
 
     params = load_params(NPZ, "cuda")
     max_err, fast_plain = phase_kernels(params, quick)
-    times = phase_timing(params, quick, fast_plain)
+    times = phase_timing(params, quick, fast_plain, sass)
     if quick:
         emit("quick", done=True)
         return

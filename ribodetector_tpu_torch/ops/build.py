@@ -52,14 +52,26 @@ def nvcc_path():
     return found
 
 
-def build_shared(src, compiler, flags, stem):
-    """Compile `src` into _build/<stem>-<hash>.so unless that file exists.
-    Returns (path, compiler log). The log (ptxas register and spill report
-    for nvcc) is kept beside the library as <path>.log."""
+def build_key(src, compiler, flags):
+    """The content hash a build is keyed on: the source's bytes, the
+    compiler's name and the flags."""
     with open(src, "rb") as fh:
         key = hashlib.sha256(fh.read())
     key.update(" ".join([os.path.basename(compiler), *flags]).encode())
-    out = os.path.join(BUILD_DIR, f"{stem}-{key.hexdigest()[:16]}.so")
+    return key.hexdigest()[:16]
+
+
+def kernel_library_key():
+    """build_key of the CUDA kernel library (needs no nvcc): what the
+    library that build_kernels loads was built from."""
+    return build_key(KERNEL_SRC, "nvcc", NVCC_FLAGS)
+
+
+def build_shared(src, compiler, flags, stem):
+    """Compile `src` into _build/<stem>-<build_key>.so unless that file
+    exists. Returns (path, compiler log). The log (ptxas register and spill
+    report for nvcc) is kept beside the library as <path>.log."""
+    out = os.path.join(BUILD_DIR, f"{stem}-{build_key(src, compiler, flags)}.so")
     log_path = out + ".log"
     if os.path.exists(out):
         log = ""
@@ -109,6 +121,8 @@ def kernel_library():
         if _kernels is None:
             path, _ = build_kernels()
             lib = ctypes.CDLL(path)
+            # every array is a device pointer (the fast kernels' W is bf16,
+            # the rest of their arrays as exact's)
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             for name in ("rd_bilstm_exact", "rd_bilstm_fast", "rd_bilstm_fast_bf16"):
                 getattr(lib, name).restype = i32

@@ -209,14 +209,16 @@ class Predictor:
 
     def _probe_marker(self):
         """Pass-marker path: the verdict is a property of (torch version,
-        package version, card, len, semantics, WEIGHTS), so repeat runs of
-        the same combination skip the probe."""
+        package version, card, len, semantics, WEIGHTS, the kernel
+        library's build key), so repeat runs of the same combination skip
+        the probe and an edited kernel source runs it again."""
         import hashlib
 
         import torch
 
         from ribodetector_tpu_torch import __version__
         from ribodetector_tpu_torch.config import cache_dir
+        from ribodetector_tpu_torch.ops.build import kernel_library_key
 
         h = hashlib.sha1()
         with open(self.state_file, "rb") as fh:
@@ -229,6 +231,7 @@ class Predictor:
                     torch.cuda.get_device_name(self.device),
                     str(self.len),
                     self.semantics,
+                    kernel_library_key(),
                 ]
             ).encode()
         )

@@ -23,8 +23,16 @@ The two "fast" kernels (the Pallas x1 pass):
               Precision.DEFAULT, so the JAX side is the fp32 recurrence and
               only the fast class's argmax bound applies.
 
+The two fast kernels run their product on the tensor cores, which sum in
+their own order, so on the card they are held to their plain versions by
+lstm_cuda.FAST_GATE (test_fast_gate_holds_a_summation_order grounds it,
+test_fast_gate_rejects_a_planted_fault shows what it catches); exact and
+high are held to 1e-4 there (high is bit-identical by design).
+
 Tests of the CUDA kernels themselves need the card and skip here.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -195,6 +203,130 @@ def test_gate_product_is_the_fp32_sum_of_exact_products(seed, rows, scale):
     np.testing.assert_array_equal(got, want)
 
 
+def _random_token_reads(rng, n, T):
+    """Token rows with pads after a random length and a few interior N
+    calls (as the chip's kernel checks make them)."""
+    tok = rng.integers(0, 4, (n, T)).astype(np.uint8)
+    lengths = rng.integers(1, T + 1, n)
+    tok[np.arange(T)[None, :] >= lengths[:, None]] = 4
+    tok[rng.random((n, T)) < 0.02] = 4
+    return tok
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread: the plain fast versions are ~25600 small ops a
+    call, which a shared, oversubscribed CPU slows many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("mode", ["fast", "fast_bf16"])
+def test_fast_gate_holds_a_summation_order(params, mode, one_thread):
+    """FAST_GATE against what a change of summation order alone does: the
+    plain version with its recurrent product summed in 16-wide k blocks
+    (the mma's k-step) stays inside the gate around the plain version as
+    it is (npz weights, T = 100), and the gate's mean-abs lies well under
+    the plain version's distance to exact, where a wrong rounding, gate or
+    token would show."""
+    _, tp = params
+    tok = torch.from_numpy(_random_token_reads(np.random.default_rng(23), 2048, 100))
+    dt = torch.bfloat16 if mode == "fast_bf16" else torch.float32
+    plain = lstm_cuda.bilstm_logits_fast_plain(tp, tok, state_dtype=dt).numpy()
+    blocked = lstm_cuda.bilstm_logits_fast_plain(tp, tok, state_dtype=dt,
+                                                 k_block=16).numpy()
+    exact = tb.bilstm_logits(tp, tok).numpy()
+    r = lstm_cuda.fast_gate(mode, blocked, plain, blocked)
+    assert r["max_abs"] > 0 and r["within_gate"], r
+    assert np.abs(plain - exact).mean() >= 2 * lstm_cuda.FAST_GATE[mode]["mean_abs"]
+
+
+def _faulty_fast_plain(tp, tokens, mode, fault):
+    """bilstm_logits_fast_plain with one planted fault (None: none), as a
+    kernel might get one wrong: a rounding left out, the token row of the
+    next step, or two gates swapped."""
+    r = lstm_cuda.bf16_round
+    bf16 = mode == "fast_bf16"
+    w = (r(tp.w_hh_f), r(tp.w_hh_b))
+    if bf16:
+        def sig(x):
+            return r(r(0.5 * r(torch.tanh(r(0.5 * x)))) + 0.5)
+
+        def tanh(x):
+            return r(torch.tanh(x))
+    else:
+        def sig(x):
+            return torch.reciprocal(1.0 + torch.exp(-x))
+
+        tanh = torch.tanh
+
+    def cell(h, c, gates_x, d):
+        h_in = h if bf16 or fault == "h_unrounded_in_product" else r(h)
+        gx = gates_x if fault == "token_row_unrounded" else r(gates_x)
+        gates = lstm_cuda.gate_product(h_in, w[d]) + gx
+        if bf16 and fault != "gates_unrounded":
+            gates = r(gates)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        if fault == "i_f_swapped":
+            i, f = f, i
+        fc, ig = sig(f) * c, sig(i) * tanh(g)
+        if not bf16:
+            c_new = fc + ig
+        else:
+            c_new = r(r(fc) + (ig if fault == "ig_unrounded" else r(ig)))
+        h_new = sig(o) * tanh(c_new)
+        return (r(h_new) if bf16 and fault != "h_unrounded" else h_new), c_new
+
+    if fault == "next_token_row":
+        tokens = tokens.roll(-1, dims=1)
+    last_out = tb.bilstm_last_out(tp, tokens, None, semantics="dense",
+                                  bwd_init=None, cell=cell)
+    return lstm_cuda.head_default(tp, last_out).numpy()
+
+
+@pytest.fixture(scope="module")
+def fault_reads(params):
+    """Reads for the planted faults (T = 100, as the gate is stated), with
+    each fast mode's plain and yardstick logits; the fault-free copy of the
+    plain version is checked against the real one bit for bit."""
+    _, tp = params
+    tok = torch.from_numpy(_random_token_reads(np.random.default_rng(29), 512, 100))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = {}
+        for mode, dt in (("fast", torch.float32), ("fast_bf16", torch.bfloat16)):
+            plain = lstm_cuda.bilstm_logits_fast_plain(tp, tok, state_dtype=dt).numpy()
+            np.testing.assert_array_equal(_faulty_fast_plain(tp, tok, mode, None), plain)
+            ref[mode] = (plain, lstm_cuda.bilstm_logits_fast_plain(
+                tp, tok, state_dtype=dt, k_block=16).numpy())
+    finally:
+        torch.set_num_threads(n)
+    return tok, ref
+
+
+@pytest.mark.parametrize("mode,fault", [
+    ("fast", "token_row_unrounded"), ("fast", "h_unrounded_in_product"),
+    ("fast", "next_token_row"), ("fast", "i_f_swapped"),
+    ("fast_bf16", "token_row_unrounded"), ("fast_bf16", "gates_unrounded"),
+    ("fast_bf16", "ig_unrounded"), ("fast_bf16", "h_unrounded"),
+    ("fast_bf16", "next_token_row"), ("fast_bf16", "i_f_swapped"),
+])
+def test_fast_gate_rejects_a_planted_fault(params, fault_reads, mode, fault,
+                                           one_thread):
+    """FAST_GATE's power: the plain version with one op wrong falls outside
+    the gate around the plain version as it is. A single bf16 rounding left
+    out, or fp32 h fed to the product, shows in the mean-abs."""
+    _, tp = params
+    tok, ref = fault_reads
+    plain, yard = ref[mode]
+    r = lstm_cuda.fast_gate(mode, _faulty_fast_plain(tp, tok, mode, fault), plain, yard)
+    assert not r["within_gate"], r
+    assert r["mean_abs"] > lstm_cuda.FAST_GATE[mode]["mean_abs"], r
+
+
 def test_high_plain_is_the_limb_arithmetic(params, batch):
     """The plain high version differs from exact only by the dropped
     Wlo*hlo term and the sigmoid's rounding: close, not identical."""
@@ -213,6 +345,33 @@ def test_split_bf16_limbs():
     assert torch.equal(hi, hi.to(torch.bfloat16).float())
     assert torch.equal(lo, lo.to(torch.bfloat16).float())
     assert ((hi + lo) - x).abs().max().item() <= 2 ** -16 * x.abs().max().item()
+
+
+def test_probe_marker_keys_on_the_kernel_source(ref_params_path, tmp_path,
+                                               monkeypatch):
+    """The startup probe's pass marker changes with the kernel library's
+    build key: an edited kernel source runs the probe again."""
+    import shutil
+
+    from ribodetector_tpu_torch.ops import build
+    from ribodetector_tpu_torch.runtime.pipeline import Predictor
+
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "a card")
+    monkeypatch.setenv("RIBODETECTOR_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    pred = Predictor.__new__(Predictor)
+    pred.state_file, pred.len, pred.semantics = ref_params_path, 100, "dense"
+    pred.device = torch.device("cpu")
+    before = pred._probe_marker()
+    assert before == pred._probe_marker()
+    src = tmp_path / "bilstm.cu"
+    shutil.copy(build.KERNEL_SRC, src)
+    monkeypatch.setattr(build, "KERNEL_SRC", str(src))
+    assert pred._probe_marker() == before  # same bytes, same key
+    with open(src, "a") as fh:
+        fh.write("// edited\n")
+    after = pred._probe_marker()
+    assert after != before
+    assert os.path.dirname(after) == os.path.dirname(before) == str(tmp_path / "cache")
 
 
 def test_wrapper_guards(params, batch):
@@ -275,7 +434,10 @@ def test_kernel_matches_plain_on_card(cuda_params, mode, semantics, k):
     Bc, Tc = 2048 + 37, 64
     tok = torch.from_numpy(rng.integers(0, 5, (Bc, Tc)).astype(np.uint8)).cuda()
     lens = torch.from_numpy(rng.integers(0, Tc + 2, Bc).astype(np.int32)).cuda()
-    init = tb.zero_prefix_state(cuda_params, k) if k else None
+    init = None
+    if k:
+        dt = torch.bfloat16 if mode == "fast_bf16" else torch.float32
+        init = tb.zero_prefix_state(cuda_params, k, compute_dtype=dt)
     plain = lstm_cuda.PLAIN[mode]
     lstm_cuda.reset_launches()
     got = lstm_cuda.bilstm_logits_cuda(cuda_params, tok, lens, semantics=semantics,
@@ -283,7 +445,40 @@ def test_kernel_matches_plain_on_card(cuda_params, mode, semantics, k):
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES[mode] == 1
     ref = plain(cuda_params, tok, lens, semantics=semantics, bwd_init=init)
-    _assert_close(got.cpu().numpy(), ref.cpu().numpy())
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    if mode not in lstm_cuda.FAST_GATE:
+        _assert_close(got, ref)
+        return
+    # the tensor cores sum in their own order: the stated gate, beside the
+    # yardstick on the same reads
+    yard = lstm_cuda.bilstm_logits_fast_plain(
+        cuda_params, tok, lens, semantics=semantics, bwd_init=init, k_block=16,
+        state_dtype=torch.bfloat16 if mode == "fast_bf16" else torch.float32)
+    assert np.isfinite(got).all()
+    r = lstm_cuda.fast_gate(mode, got, ref, yard.cpu().numpy())
+    assert r["within_gate"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fast", "fast_bf16"])
+@pytest.mark.parametrize("semantics", ["dense", "packed"])
+def test_fast_kernels_are_row_invariant_on_card(cuda_params, mode, semantics):
+    """A read's logits depend only on its own tokens, bit for bit: the
+    same reads shuffled, and some of them inside a batch of another size."""
+    rng = np.random.default_rng(13)
+    Bc, Tc = 1024 + 5, 100
+    tok = torch.from_numpy(_random_token_reads(rng, Bc, Tc)).cuda()
+    lens = torch.from_numpy(rng.integers(1, Tc + 1, Bc).astype(np.int32)).cuda()
+    other = torch.from_numpy(_random_token_reads(rng, 77, Tc)).cuda()
+    perm = torch.from_numpy(rng.permutation(Bc)).cuda()
+    kw = dict(semantics=semantics, mode=mode)
+    run = lstm_cuda.bilstm_logits_cuda
+    base = run(cuda_params, tok, lens, **kw)
+    assert torch.equal(run(cuda_params, tok[perm].contiguous(), lens[perm], **kw),
+                       base[perm])
+    mixed = run(cuda_params, torch.cat([other, tok[:300]]),
+                torch.cat([lens[:77], lens[:300]]), **kw)
+    assert torch.equal(mixed[77:], base[:300])
 
 
 @pytest.mark.cuda
