@@ -16,16 +16,18 @@ Phases, one JSON line each; any failure exits non-zero:
             diagnostic, those of each kernel's step loop per cell
   kernels   each of the four CUDA kernels (exact, high, fast, fast_bf16)
             against its plain torch version on the card (real weights,
-            B = 16384+37, three settings): exact and high to max-abs <= 1e-4,
-            the tensor-core fast kernels to FAST_GATE (lstm_cuda.fast_gate:
+            B = 16384+37, three settings): exact to max-abs <= 1e-4, the
+            three tensor-core kernels to TC_GATE (lstm_cuda.tc_gate:
             mean-abs, 99.9th percentile, max-abs against the yardstick, no
             flip above a margin), beside the yardstick (the plain version
             summed in 16-wide k blocks) on the same reads, and once more at
-            the path's batch (262144 reads, T=100), where the fast plain
-            versions are timed; the fast kernels' row invariance (shuffled
-            reads, and reads in a batch of another size, bit for bit); high
-            against exact under the startup probe's gate, and the fast
-            kernels' flips against exact (information, not a gate)
+            the path's batch (262144 reads, T=100), where their plain
+            versions are timed (one call each); the tensor-core kernels'
+            row invariance (shuffled reads, and reads in a batch of another
+            size, bit for bit) and their bit identity with W_hh = 0 (the
+            product exactly zero in any order); high against exact under
+            the startup probe's gate, and the fast kernels' flips against
+            exact (information, not a gate)
   timing    kernel and plain times, the bound, and the cuDNN LSTM yardstick
             (fp32 for exact/high, bf16 for the fast kernels) at B=262144,
             T=100; the bound is the largest of the bytes, the products at
@@ -34,8 +36,9 @@ Phases, one JSON line each; any failure exits non-zero:
   main      the CLI main path (paired gz, -l 100, -e both) over 2 x 262144
             reads with a cleared parity-marker cache, its partition checked
             read for read against the plain exact labels on the card, and
-            each kernel's launch count in that run (--profile logs the
-            stage breakdown on stderr)
+            each kernel's launch count in that run: exact once (the probe's
+            reference arm), high on the probe and every batch (--profile
+            logs the stage breakdown on stderr)
   serve     the JSONL job server (serve.main, --precision fast,
             --concurrency 2) over a 2 x 262144-read paired gz job, the same
             job again (memo reuse), a malformed line, a single-end job of
@@ -90,9 +93,9 @@ BF16_TC_FLOPS = 989e12
 CUDA_CORE_INSTR_PER_S = FP32_FLOPS / 2
 MUFU_PER_S = CUDA_CORE_INSTR_PER_S / 8
 # cell evaluations one thread makes per step of each kernel's loop
-# (csrc/bilstm.cu: RB x RJ for exact/high; TM reads x 8 units / 32 lanes
-# for the tensor-core kernels)
-CELLS_PER_THREAD_STEP = {"exact": 16, "high": 16, "fast": 16, "fast_bf16": 16}
+# (csrc/bilstm.cu: RB x RJ for exact; TM reads x 8 units / 32 lanes for the
+# fast kernels; 32 reads x 8 units / 32 lanes for each of high's warps)
+CELLS_PER_THREAD_STEP = {"exact": 16, "high": 8, "fast": 16, "fast_bf16": 16}
 H = 128
 G = 4 * H
 LIB_CHUNK = 16384  # reads per cuDNN call of the library yardstick
@@ -169,7 +172,9 @@ def phase_env():
 
 SASS_FUNCTION = re.compile(r"Function : (\S+)")
 SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
-SASS_KERNEL = re.compile(r"bilstm_(?:tc_)?kernelILi(\d)E")  # template MODE
+# the kernels' names: bilstm_tc_kernel<MODE> (fast, fast_bf16), and
+# bilstm_exact_kernel, bilstm_high_kernel
+SASS_KERNEL = re.compile(r"bilstm_tc_kernelILi(\d)E|bilstm_(exact|high)_kernel")
 SASS_CELL = re.compile(r"^rd_cell_floor_(\w+)$")  # the cell's micro-kernels
 
 
@@ -196,7 +201,10 @@ def read_sass(lib_path):
         if m:
             k = SASS_KERNEL.search(m.group(1))
             cf = SASS_CELL.match(m.group(1))
-            cur = MODES[int(k.group(1))] if k else ("cell:" + cf.group(1) if cf else None)
+            if k:
+                cur = MODES[int(k.group(1))] if k.group(1) else k.group(2)
+            else:
+                cur = "cell:" + cf.group(1) if cf else None
             if cur:
                 funcs[cur] = []
             continue
@@ -220,7 +228,7 @@ def sass_stats(mode, insns):
     """Tensor-core instructions of one kernel, and, as a diagnostic, the
     instructions of its step loop (the widest backward branch) that run on
     the CUDA cores per cell evaluation: those outside any loop nested in it
-    (exact and high stage and multiply W_hh in such loops) and other than
+    (exact stages and multiplies W_hh in such loops) and other than
     HMMA/HGMMA/LDSM (the tensor-core product) or NOP. That count takes in
     the step's own work (token load, ldmatrix addresses, barrier, hold and
     capture), so it is the kernel's cost per cell, not the bound's."""
@@ -302,7 +310,7 @@ def phase_build():
         check(stats["cell:" + mode] is not None,
               f"no single loop in the {mode} cell's micro-kernel")
     emit("build", sass=stats)
-    for mode in ("fast", "fast_bf16"):
+    for mode in ("high", "fast", "fast_bf16"):
         check(stats[mode]["hmma"] + stats[mode]["hgmma"] > 0,
               f"the {mode} kernel holds no tensor-core instruction")
     return stats
@@ -332,19 +340,14 @@ def row_invariance(params, mode, tok, lens, sem, bwd):
             "other_batch": bool(torch.equal(mixed, base[:n]))}
 
 
-def gate_fast(params, mode, tok, lens, sem, bwd, got, setting):
-    """A fast kernel's logits against its plain version under FAST_GATE,
-    beside the yardstick; emits the readings and fails outside the gate.
-    Returns (readings, the plain version's time in ms: one call, CUDA
+def gate_tc(params, mode, tok, lens, sem, bwd, got, setting):
+    """A tensor-core kernel's logits against its plain version under
+    TC_GATE, beside the yardstick; emits the readings and fails outside the
+    gate. Returns (readings, the plain version's time in ms: one call, CUDA
     events)."""
     import torch
 
-    from ribodetector_tpu_torch.ops.lstm_cuda import (
-        FAST_GATE,
-        PLAIN,
-        bilstm_logits_fast_plain,
-        fast_gate,
-    )
+    from ribodetector_tpu_torch.ops.lstm_cuda import PLAIN, TC_GATE, YARDSTICK, tc_gate
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -352,15 +355,34 @@ def gate_fast(params, mode, tok, lens, sem, bwd, got, setting):
     ref = PLAIN[mode](params, tok, lens, semantics=sem, bwd_init=bwd)
     end.record()
     torch.cuda.synchronize()
-    yard = bilstm_logits_fast_plain(
-        params, tok, lens, semantics=sem, bwd_init=bwd, k_block=16,
-        state_dtype=torch.bfloat16 if mode == "fast_bf16" else torch.float32)
-    r = fast_gate(mode, got, ref.cpu().numpy(), yard.cpu().numpy())
+    yard = YARDSTICK[mode](params, tok, lens, semantics=sem, bwd_init=bwd)
+    r = tc_gate(mode, got, ref.cpu().numpy(), yard.cpu().numpy())
     emit("kernels", kernel=mode, setting=setting, B=tok.shape[0], vs="plain",
-         gate=FAST_GATE[mode], **r)
+         gate=TC_GATE[mode], **r)
     check(r["within_gate"], f"{mode} kernel is outside its gate against its "
                             f"plain version ({setting}): {r}")
     return r, start.elapsed_time(end)
+
+
+def zero_product(params, mode, tok, lens, sem, bwd, setting):
+    """Bit for bit against the plain version with W_hh = 0, where the
+    product is exactly zero whatever order the tensor cores sum in."""
+    import torch
+
+    from ribodetector_tpu_torch.ops.lstm_cuda import (
+        PLAIN,
+        bilstm_logits_cuda,
+        zero_product_params,
+    )
+
+    p0 = zero_product_params(params)
+    got = bilstm_logits_cuda(p0, tok, lens, semantics=sem, mode=mode, bwd_init=bwd)
+    ref = PLAIN[mode](p0, tok, lens, semantics=sem, bwd_init=bwd)
+    same = bool(torch.equal(got, ref))
+    emit("kernels", kernel=mode, setting=setting, B=tok.shape[0],
+         zero_product_bit_identical=same, max_abs=float((got - ref).abs().max()))
+    check(same, f"{mode}: not bit-identical to its plain version with W_hh = 0 "
+                f"({setting})")
 
 
 def phase_kernels(params, quick):
@@ -368,8 +390,8 @@ def phase_kernels(params, quick):
 
     from ribodetector_tpu_torch.models.bilstm import zero_prefix_state
     from ribodetector_tpu_torch.ops.lstm_cuda import (
-        FAST_GATE,
         PLAIN,
+        TC_GATE,
         bilstm_logits_cuda,
     )
 
@@ -400,15 +422,16 @@ def phase_kernels(params, quick):
                 got = got.cpu().numpy()
                 check(got.shape == (B, 2) and np.isfinite(got).all(),
                       f"{mode} {name}: shape {got.shape} or non-finite logits")
-                if mode in FAST_GATE:
+                if mode in TC_GATE:
                     # the tensor cores sum in their own order: held to the
                     # gate, beside what a change of order alone does
-                    r, _ = gate_fast(params, mode, tok, lens, sem, bwd, got, name)
+                    r, _ = gate_tc(params, mode, tok, lens, sem, bwd, got, name)
                     inv = row_invariance(params, mode, tok, lens, sem, bwd)
                     emit("kernels", kernel=mode, setting=name, B=B,
                          row_invariance=inv)
                     check(all(inv.values()),
                           f"{mode}: a read's logits depend on its batch: {inv}")
+                    zero_product(params, mode, tok, lens, sem, bwd, name)
                 else:
                     ref = PLAIN[mode](params, tok, lens, semantics=sem, bwd_init=bwd)
                     r = compare(got, ref.cpu().numpy())
@@ -422,24 +445,44 @@ def phase_kernels(params, quick):
             emit("kernels", kernel="high", setting=name, B=B, vs="exact",
                  probe_gate=gate, **r)
             check(gate, f"high vs exact fails the probe gate: {r}")
-            for mode in FAST_GATE:
+            for mode in ("fast", "fast_bf16"):
                 # what a user of the fast modes gives up: not a gate
                 emit("kernels", kernel=mode, setting=name, B=B, vs="exact",
                      **compare(out[mode], out["exact"]))
         # the gate once more at the batch of one device call of the main
         # path (the timing batch): its terms must not depend on the number
-        # of reads, and here the plain fast versions are timed (one call)
+        # of reads, and here the plain versions of the tensor-core kernels
+        # are timed (one call each: plain high sums in k order, one
+        # elementwise op per product, and takes ~36 s)
         Bp = 16384 if quick else 262144
         tok = torch.from_numpy(random_tokens(np.random.default_rng(11), Bp, 100)[0]).to(dev)
-        for mode in FAST_GATE:
+        for mode in TC_GATE:
             got = bilstm_logits_cuda(params, tok, semantics="dense", mode=mode)
-            r, plain_ms[mode] = gate_fast(params, mode, tok, None, "dense", None,
-                                          got.cpu().numpy(), "T100_dense_path_batch")
+            r, plain_ms[mode] = gate_tc(params, mode, tok, None, "dense", None,
+                                        got.cpu().numpy(), "T100_dense_path_batch")
             max_err[mode] = max(max_err[mode], r["max_abs"])
     return max_err, {"plain_ms": plain_ms, "plain_B": Bp}
 
 
-def phase_timing(params, quick, fast_plain, sass):
+def high_placement():
+    """The SMs the high kernel's clusters leave idle: a cluster's two blocks
+    take two SMs of one GPC, so a GPC with an odd count of SMs keeps one
+    free (cudaOccupancyMaxActiveClusters, one block per SM)."""
+    import ctypes
+
+    import torch
+
+    from ribodetector_tpu_torch.ops.build import kernel_library
+
+    lib, n = kernel_library(), ctypes.c_int(0)
+    err = lib.rd_high_max_active_clusters(ctypes.byref(n))
+    check(err == 0, f"cudaOccupancyMaxActiveClusters failed: "
+                    f"{lib.rd_cuda_error_string(err).decode()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"sms": sms, "resident_clusters": n.value, "idle_sms": sms - 2 * n.value}
+
+
+def phase_timing(params, quick, tc_plain, sass):
     """Times at the main path's full device call: 2 x 131072 reads, T=100."""
     import torch
 
@@ -457,16 +500,12 @@ def phase_timing(params, quick, fast_plain, sass):
             res[mode] = {"ms": cuda_time_ms(
                 lambda: bilstm_logits_cuda(params, tok, semantics="dense",
                                            mode=mode), 3)}
-        for mode in ("exact", "high"):
-            # the plain high version sums in the kernel's order, one
-            # elementwise op per product: slow by design, timed once
-            res[mode]["plain_ms"] = cuda_time_ms(
-                lambda: PLAIN[mode](params, tok, semantics="dense"),
-                2 if mode == "exact" else 1)
-            res[mode]["plain_B"] = B
-        for mode in ("fast", "fast_bf16"):
-            res[mode]["plain_ms"] = fast_plain["plain_ms"][mode]
-            res[mode]["plain_B"] = fast_plain["plain_B"]
+        res["exact"]["plain_ms"] = cuda_time_ms(
+            lambda: PLAIN["exact"](params, tok, semantics="dense"), 2)
+        res["exact"]["plain_B"] = B
+        for mode in ("high", "fast", "fast_bf16"):
+            res[mode]["plain_ms"] = tc_plain["plain_ms"][mode]
+            res[mode]["plain_B"] = tc_plain["plain_B"]
         # yardstick: cuDNN's LSTM on the same one-hot batch, plus the dense
         # gather and the head; fp32 (TF32 off) beside exact and high, bf16
         # beside the fast kernels; the port never calls it
@@ -506,14 +545,15 @@ def phase_timing(params, quick, fast_plain, sass):
         del onehot, exact
         torch.cuda.empty_cache()
     # least time, the largest of: bytes, each input read once and the
-    # output written once (tokens, gather, W_hh in its type, the token table;
+    # output written once (tokens, gather, W_hh in its type -- high's two
+    # bf16 limbs: 4 bytes an element --, the token table;
     # last_out [B, 256] fp32 out); the multiply-adds at the peak rate of
     # their type (fp32 for exact, bf16 tensor cores for high's limbs and the
     # fast modes' single pass); and the cell's evaluations (2*T*H a read) on
     # the CUDA cores: the instructions of one cell in the mode's micro-kernel
     # (read from the SASS in the build phase) at the issue rate, or its MUFU
     # instructions at theirs, whichever takes longer
-    w_bytes = {"exact": 4, "high": 8, "fast": 2, "fast_bf16": 2}
+    w_bytes = {"exact": 4, "high": 4, "fast": 2, "fast_bf16": 2}
     flops = 2.0 * 2 * T * G * H * B
     cells = 2.0 * T * H * B
     ops_ms = {"exact": 1e3 * flops / FP32_FLOPS,
@@ -533,6 +573,7 @@ def phase_timing(params, quick, fast_plain, sass):
         res[mode]["bound_by"] = ("bytes" if bytes_ms >= max(ops_ms[mode], cell_ms or 0.0)
                                  else "operations")
         emit("timing", kernel=mode, B=B, T=T, library=f"cudnn_{lib}",
+             **(high_placement() if mode == "high" else {}),
              library_err=lib_err[lib], library_calls=-(-B // LIB_CHUNK),
              bytes_ms=bytes_ms, products_ms=ops_ms[mode], cell_ms=cell_ms,
              cell_insns=cell and cell["insns"], cell_mufu=cell and cell["mufu"],
@@ -698,8 +739,10 @@ def phase_main(params, tmp, n=262144):
          counts={str(k): int((got == k).sum()) for k in (0, 1, -1)})
     check(not bad[margin >= 5e-3].any(),
           "output partition disagrees with plain exact labels at margin >= 5e-3")
-    for mode in ("exact", "high"):
-        check(launches[mode] > 0, f"the main path never launched the {mode} kernel")
+    # the probe runs exact once (its reference arm) and high once; a probe
+    # that fell back to exact would run every batch on exact instead
+    check(launches["exact"] == 1 and launches["high"] >= 2,
+          f"the main path's batches did not run on high: {launches}")
     return launches, inputs, got, wall
 
 
@@ -926,8 +969,8 @@ def main(argv):
     from ribodetector_tpu_torch.models import load_params
 
     params = load_params(NPZ, "cuda")
-    max_err, fast_plain = phase_kernels(params, quick)
-    times = phase_timing(params, quick, fast_plain, sass)
+    max_err, tc_plain = phase_kernels(params, quick)
+    times = phase_timing(params, quick, tc_plain, sass)
     if quick:
         emit("quick", done=True)
         return

@@ -7,10 +7,10 @@ hand-written Hopper kernel:
   "exact"     fp32 recurrence (fp32 FMA, IEEE sigmoid/tanh). Replaces the
               Pallas ``_kernel`` in its "x6" mode. Plain version:
               models/bilstm.bilstm_logits.
-  "high"      2-limb bf16 split of the recurrent product accumulated in
-              fp32, tanh-form sigmoid. Replaces the Pallas
-              ``_kernel_x3cat``. Plain version: bilstm_logits_high_plain,
-              bit-identical to the kernel (same summation order).
+  "high"      2-limb bf16 split of the recurrent product on the tensor
+              cores (three bf16 products, fp32 accumulate) + the exact fp32
+              token row, tanh-form sigmoid. Replaces the Pallas
+              ``_kernel_x3cat``. Plain version: bilstm_logits_high_plain.
   "fast"      one bf16 pass on the tensor cores (bf16 operands, fp32
               accumulate), fp32 state. Replaces ``_kernel`` "x1" under fp32
               compute (--precision fast). Plain version:
@@ -20,12 +20,13 @@ hand-written Hopper kernel:
               (runtime.compute_dtype = bfloat16). Plain version:
               bilstm_logits_fast_plain(state_dtype=torch.bfloat16).
 
-The two fast kernels sum each 16-wide k block of the recurrent product in
-the tensor cores' order, so they are not bit-identical to their plain
-versions (which sum k ascending): bf16 rounding of h or of the gates
-amplifies the 1-ulp order difference over T. FAST_GATE states how close
-they are held, and why, and fast_gate applies it; each read's logits still
-depend only on its own tokens, bit for bit, whatever batch it sits in.
+The three tensor-core kernels (high, fast, fast_bf16) sum each 16-wide k
+block of the recurrent product in the tensor cores' order, so they are not
+bit-identical to their plain versions (which sum k ascending): high's limb
+split, and bf16 rounding of h or of the gates in the fast modes, amplify
+the 1-ulp order difference over T. TC_GATE states how close they are held,
+and why, and tc_gate applies it; each read's logits still depend only on
+its own tokens, bit for bit, whatever batch it sits in.
 
 A CUDA tensor goes to the kernel or raises; a CPU tensor takes the plain
 version (that is how the CPU tests and the CPU entry point run). The gather
@@ -55,25 +56,38 @@ from ribodetector_tpu_torch.models.bilstm import (
 
 MODES = ("exact", "high", "fast", "fast_bf16")
 LAUNCHES = {mode: 0 for mode in MODES}
-# How close each fast kernel is held to its plain version, on the logits,
-# beside the yardstick: the plain version with its product summed in 16-wide
-# k blocks (the mma's k-step, gate_product k_block=16) on the same reads,
-# i.e. what a change of summation order alone does. No term grows with the
+# How close each tensor-core kernel is held to its plain version, on the
+# logits, beside the yardstick: the plain version with its product summed in
+# 16-wide k blocks (the mma's k-step, k_block=16) on the same reads, i.e.
+# what a change of summation order alone does. No term grows with the
 # number of reads, so the gate means the same at a check's 16421 reads as
 # at a device call's 262144 (numbers: random-token reads at T = 64 and 100,
 # an H100, PERF.md):
-#   mean_abs          mean |kernel - plain|. The order alone gives 4e-4 to
-#                     1.2e-3, the kernels 8e-4 to 2.2e-3; one rounding left
-#                     out, an unrounded token row or fp32 h in the product
-#                     gives 4.6e-3 to 2e-2 (tests/test_torch_kernels.py).
+#   mean_abs          mean |kernel - plain|. fast, fast_bf16: the order alone
+#                     gives 4e-4 to 1.2e-3, the kernels 8e-4 to 2.2e-3; one
+#                     rounding left out, an unrounded token row or fp32 h in
+#                     the product gives 4.6e-3 to 2e-2. high: the order
+#                     alone 5.8e-6 to 8.0e-6, the kernel 6.5e-6 to 8.9e-6; a
+#                     dropped limb product or a bf16 token row 4.6e-3 to
+#                     7.7e-3 (tests/test_torch_kernels.py). A change that
+#                     moves each step by about an ulp (high's sigmoid in exp
+#                     form, hlo's rounding) reads like an order: bit
+#                     identity under zero_product_params shows the first,
+#                     no check the second.
 #   q999_abs          the 99.9th percentile of |kernel - plain|: about 4x the
-#                     order's (0.018-0.028 fast, 0.047-0.071 fast_bf16).
+#                     order's (0.018-0.028 fast, 0.047-0.071 fast_bf16); high
+#                     ~6.5x the kernel's 6.0e-5 to 7.7e-5 (the order's:
+#                     5.3e-5 to 6.6e-5), ~70x under the faults' 0.037.
 #   max_vs_yardstick  max |kernel - plain| over the yardstick's max on the
 #                     same reads: one read's worst deviation grows with the
 #                     number of reads (the order alone reaches 0.094 / 0.435
-#                     at 262144 reads), so it is held to 4x the order's.
-#   flip_margin       no argmax flip where the plain margin is at least this.
-FAST_GATE = {
+#                     at 262144 reads), so it is held to 4x the order's (the
+#                     high kernel reads 0.83-1.26x).
+#   flip_margin       no argmax flip where the plain margin is at least this
+#                     (high: the startup probe's 5e-3).
+TC_GATE = {
+    "high": {"mean_abs": 5e-5, "q999_abs": 5e-4, "max_vs_yardstick": 4.0,
+             "flip_margin": 5e-3},
     "fast": {"mean_abs": 3e-3, "q999_abs": 0.1, "max_vs_yardstick": 4.0,
              "flip_margin": 0.1},
     "fast_bf16": {"mean_abs": 5e-3, "q999_abs": 0.3, "max_vs_yardstick": 4.0,
@@ -82,11 +96,11 @@ FAST_GATE = {
 _launch_lock = threading.Lock()
 
 
-def fast_gate(mode, got, plain, yardstick):
-    """FAST_GATE[mode] applied to [B, 2] logits `got` against the plain
+def tc_gate(mode, got, plain, yardstick):
+    """TC_GATE[mode] applied to [B, 2] logits `got` against the plain
     version's `plain`, with the yardstick's logits on the same reads.
     Returns the readings (the yardstick's beside them) and "within_gate"."""
-    gate = FAST_GATE[mode]
+    gate = TC_GATE[mode]
     plain = np.asarray(plain, np.float64)
     margin = np.abs(plain[:, 1] - plain[:, 0])
 
@@ -123,18 +137,42 @@ def split_bf16(x):
     return hi, lo
 
 
-def bilstm_logits_high_plain(params: BiLSTMParams, tokens, lengths=None, *,
-                             semantics="dense", bwd_init=None):
-    """Plain torch version of the "high" kernel's arithmetic: per direction
-    and step, gates = Whi*hhi + Whi*hlo + Wlo*hhi accumulated in fp32 plus
-    the exact fp32 token/bias row, and sigmoid as 0.5*tanh(0.5x)+0.5.
+def high_product(hhi, hlo, whi, wlo, k_block=1):
+    """Whi*hhi + Whi*hlo + Wlo*hhi summed in fp32: the high kernel's
+    recurrent product. The limbs hold bf16 values, so every product is exact
+    in fp32. k_block=1 sums k ascending, three products per k, one rounding
+    per add; k_block=16 sums each 16-wide block of k as three matrix
+    products in that order and adds them in turn, as the kernel's three
+    mma.sync per k-step do (the yardstick of TC_GATE["high"])."""
+    acc = torch.zeros((hhi.shape[0], whi.shape[1]), dtype=torch.float32,
+                      device=hhi.device)
+    if k_block == 1:
+        for k in range(whi.shape[0]):
+            torch.addcmul(acc, hhi[:, k : k + 1], whi[k], out=acc)
+            torch.addcmul(acc, hlo[:, k : k + 1], whi[k], out=acc)
+            torch.addcmul(acc, hhi[:, k : k + 1], wlo[k], out=acc)
+        return acc
+    for k0 in range(0, whi.shape[0], k_block):
+        k = slice(k0, k0 + k_block)
+        acc = acc + hhi[:, k] @ whi[k]
+        acc = acc + hlo[:, k] @ whi[k]
+        acc = acc + hhi[:, k] @ wlo[k]
+    return acc
 
-    The sum runs in the kernel's order -- k ascending, three products per k
-    -- one rounding per add (each product of two bf16 values is exact in
-    fp32, so an add of a product rounds as the kernel's FMA does). A matrix
-    product would sum in another order, and the limb split amplifies that
-    difference to ~1e-4 in the logits at T=100 (csrc/bilstm.cu). It is
-    therefore slow: 3*hidden elementwise ops per step and direction."""
+
+def bilstm_logits_high_plain(params: BiLSTMParams, tokens, lengths=None, *,
+                             semantics="dense", bwd_init=None, k_block=1):
+    """Plain torch version of the "high" kernel's arithmetic: per direction
+    and step, gates = Whi*hhi + Whi*hlo + Wlo*hhi accumulated in fp32
+    (high_product, k ascending unless k_block says otherwise) plus the
+    exact fp32 token/bias row, and sigmoid as 0.5*tanh(0.5x)+0.5.
+
+    The kernel sums on the tensor cores, in their order, which no torch op
+    reproduces; the limb split amplifies a 1-ulp order difference (a flipped
+    rounding of hlo is 2^-16 of h) to ~1e-4 in the logits at T=100, so
+    kernel and plain version agree to TC_GATE["high"], not bit for bit. The
+    k-ascending sum is slow: 3*hidden elementwise ops per step and
+    direction."""
     limbs = [split_bf16(w) for w in (params.w_hh_f, params.w_hh_b)]
 
     def sig(x):
@@ -142,13 +180,7 @@ def bilstm_logits_high_plain(params: BiLSTMParams, tokens, lengths=None, *,
 
     def cell(h, c, gates_x, d):
         hhi, hlo = split_bf16(h)
-        whi, wlo = limbs[d]
-        acc = torch.zeros_like(gates_x)
-        for k in range(whi.shape[0]):
-            torch.addcmul(acc, hhi[:, k : k + 1], whi[k], out=acc)
-            torch.addcmul(acc, hlo[:, k : k + 1], whi[k], out=acc)
-            torch.addcmul(acc, hhi[:, k : k + 1], wlo[k], out=acc)
-        gates = acc + gates_x
+        gates = high_product(hhi, hlo, *limbs[d], k_block) + gates_x
         i, f, g, o = gates.chunk(4, dim=-1)
         c_new = sig(f) * c + sig(i) * torch.tanh(g)
         return sig(o) * torch.tanh(c_new), c_new
@@ -176,7 +208,7 @@ def gate_product(h, w, k_block=1):
     h [B, K] and w [K, G] hold bf16 values, so every product is exact in
     fp32. k_block=1 sums k ascending, one rounding per add; k_block=16 sums
     each 16-wide block of k as one matrix product and adds the blocks in
-    order, as a tensor-core mma's k-step does (the yardstick of FAST_GATE:
+    order, as a tensor-core mma's k-step does (the yardstick of TC_GATE:
     what a change of summation order alone does to the logits)."""
     acc = torch.zeros((h.shape[0], w.shape[1]), dtype=torch.float32,
                       device=h.device)
@@ -207,7 +239,7 @@ def bilstm_logits_fast_plain(params: BiLSTMParams, tokens, lengths=None, *,
     The kernels sum in the tensor cores' order, which no torch op
     reproduces, and rounding h to bf16 every step turns a 1-ulp difference
     in a fp32 sum into a 2^-8-relative jump in h: kernel and plain version
-    agree to FAST_GATE, not bit for bit. The k-ascending sum, one rounding
+    agree to TC_GATE, not bit for bit. The k-ascending sum, one rounding
     per add, is slow: hidden elementwise ops per step and direction."""
     if state_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"state_dtype must be float32 or bfloat16, got {state_dtype}")
@@ -251,6 +283,26 @@ PLAIN = {
     "fast_bf16": functools.partial(bilstm_logits_fast_plain,
                                    state_dtype=torch.bfloat16),
 }
+# each tensor-core kernel's yardstick for TC_GATE: its plain version with
+# the recurrent product summed in 16-wide k blocks
+YARDSTICK = {
+    "high": functools.partial(bilstm_logits_high_plain, k_block=16),
+    "fast": functools.partial(PLAIN["fast"], k_block=16),
+    "fast_bf16": functools.partial(PLAIN["fast_bf16"], k_block=16),
+}
+
+
+def zero_product_params(params: BiLSTMParams):
+    """params with W_hh zero: a kernel's recurrent product is then exactly
+    zero, whatever order it sums in, and the kernel must equal its plain
+    version bit for bit. This checks the cell, the token rows, hold and
+    capture apart from the order, including what TC_GATE cannot see: a
+    change that moves each step by about an ulp, as a change of order does
+    (the exp form of high's sigmoid). Nonzero W_hh gives no such weights:
+    the tensor cores round an inexact sum their own way, which the plain
+    version does not reproduce."""
+    return params._replace(w_hh_f=torch.zeros_like(params.w_hh_f),
+                           w_hh_b=torch.zeros_like(params.w_hh_b))
 
 
 def _ptr(t):
@@ -324,7 +376,10 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if mode == "high":
-            whi, wlo = split_bf16(whh)
+            # both limbs of W_hh, transposed to bf16 [2, G, H] for the
+            # tensor cores (exactly bf16 values: the cast rounds nothing)
+            whi, wlo = (w.transpose(1, 2).to(torch.bfloat16).contiguous()
+                        for w in split_bf16(whh))
             err = lib.rd_bilstm_high(
                 _ptr(tokens), _ptr(gather), _ptr(lengths), _ptr(whi),
                 _ptr(wlo), _ptr(tokw), _ptr(init), _ptr(out), B, T,

@@ -23,11 +23,15 @@ The two "fast" kernels (the Pallas x1 pass):
               Precision.DEFAULT, so the JAX side is the fp32 recurrence and
               only the fast class's argmax bound applies.
 
-The two fast kernels run their product on the tensor cores, which sum in
-their own order, so on the card they are held to their plain versions by
-lstm_cuda.FAST_GATE (test_fast_gate_holds_a_summation_order grounds it,
-test_fast_gate_rejects_a_planted_fault shows what it catches); exact and
-high are held to 1e-4 there (high is bit-identical by design).
+The three tensor-core kernels (high, fast, fast_bf16) sum their product
+in the tensor cores' own order, so on the card they are held to their
+plain versions by lstm_cuda.TC_GATE (test_high_gate_holds_a_summation_order
+and test_fast_gate_holds_a_summation_order ground it; the planted-fault
+tests show what it catches) and, bit for bit, with W_hh = 0
+(lstm_cuda.zero_product_params, where no summation order changes the
+product);
+exact is held to 1e-4 there. The plain high version summed in 16-wide k
+blocks (the yardstick) is held to the Pallas x3 kernel like the plain one.
 
 Tests of the CUDA kernels themselves need the card and skip here.
 """
@@ -76,10 +80,14 @@ def _assert_close(got, ref):
     np.testing.assert_array_equal(got.argmax(1)[sure], ref.argmax(1)[sure])
 
 
-@pytest.mark.parametrize("mode,matmul", [("high", "x3"), ("exact", "x6")])
+@pytest.mark.parametrize("mode,matmul,k_block", [
+    pytest.param("high", "x3", 1, id="high-x3"),
+    pytest.param("exact", "x6", 1, id="exact-x6"),
+    pytest.param("high", "x3", 16, id="high-x3-k16"),  # TC_GATE's yardstick
+])
 @pytest.mark.parametrize("semantics,k", [("dense", None), ("packed", None),
                                          ("dense", 11)])
-def test_plain_matches_pallas(params, batch, mode, matmul, semantics, k):
+def test_plain_matches_pallas(params, batch, mode, matmul, k_block, semantics, k):
     jp, tp = params
     tok, lengths = batch
     jinit = tinit = None
@@ -90,9 +98,14 @@ def test_plain_matches_pallas(params, batch, mode, matmul, semantics, k):
         jp, jnp.asarray(tok), jnp.asarray(lengths), semantics=semantics,
         matmul=matmul, interpret=True, bwd_init=jinit))
     lstm_cuda.reset_launches()
-    got = lstm_cuda.bilstm_logits_cuda(
-        tp, torch.from_numpy(tok), torch.from_numpy(lengths),
-        semantics=semantics, mode=mode, bwd_init=tinit).numpy()
+    if k_block == 1:
+        got = lstm_cuda.bilstm_logits_cuda(
+            tp, torch.from_numpy(tok), torch.from_numpy(lengths),
+            semantics=semantics, mode=mode, bwd_init=tinit).numpy()
+    else:
+        got = lstm_cuda.YARDSTICK[mode](
+            tp, torch.from_numpy(tok), torch.from_numpy(lengths),
+            semantics=semantics, bwd_init=tinit).numpy()
     _assert_close(got, ref)
     # a CPU tensor takes the plain version: no kernel launch is counted
     assert lstm_cuda.LAUNCHES == {m: 0 for m in lstm_cuda.MODES}
@@ -225,7 +238,7 @@ def one_thread():
 
 @pytest.mark.parametrize("mode", ["fast", "fast_bf16"])
 def test_fast_gate_holds_a_summation_order(params, mode, one_thread):
-    """FAST_GATE against what a change of summation order alone does: the
+    """TC_GATE against what a change of summation order alone does: the
     plain version with its recurrent product summed in 16-wide k blocks
     (the mma's k-step) stays inside the gate around the plain version as
     it is (npz weights, T = 100), and the gate's mean-abs lies well under
@@ -238,9 +251,9 @@ def test_fast_gate_holds_a_summation_order(params, mode, one_thread):
     blocked = lstm_cuda.bilstm_logits_fast_plain(tp, tok, state_dtype=dt,
                                                  k_block=16).numpy()
     exact = tb.bilstm_logits(tp, tok).numpy()
-    r = lstm_cuda.fast_gate(mode, blocked, plain, blocked)
+    r = lstm_cuda.tc_gate(mode, blocked, plain, blocked)
     assert r["max_abs"] > 0 and r["within_gate"], r
-    assert np.abs(plain - exact).mean() >= 2 * lstm_cuda.FAST_GATE[mode]["mean_abs"]
+    assert np.abs(plain - exact).mean() >= 2 * lstm_cuda.TC_GATE[mode]["mean_abs"]
 
 
 def _faulty_fast_plain(tp, tokens, mode, fault):
@@ -316,15 +329,157 @@ def fault_reads(params):
 ])
 def test_fast_gate_rejects_a_planted_fault(params, fault_reads, mode, fault,
                                            one_thread):
-    """FAST_GATE's power: the plain version with one op wrong falls outside
+    """TC_GATE's power: the plain version with one op wrong falls outside
     the gate around the plain version as it is. A single bf16 rounding left
     out, or fp32 h fed to the product, shows in the mean-abs."""
     _, tp = params
     tok, ref = fault_reads
     plain, yard = ref[mode]
-    r = lstm_cuda.fast_gate(mode, _faulty_fast_plain(tp, tok, mode, fault), plain, yard)
+    r = lstm_cuda.tc_gate(mode, _faulty_fast_plain(tp, tok, mode, fault), plain, yard)
     assert not r["within_gate"], r
-    assert r["mean_abs"] > lstm_cuda.FAST_GATE[mode]["mean_abs"], r
+    assert r["mean_abs"] > lstm_cuda.TC_GATE[mode]["mean_abs"], r
+
+
+def test_high_gate_holds_a_summation_order(params, one_thread):
+    """TC_GATE["high"] against what a change of summation order alone does:
+    the plain high version with its three products summed in 16-wide k
+    blocks (the kernel's mma k-step, its yardstick) stays inside the gate
+    around the plain version as it is (npz weights, T = 100). Measured on
+    these reads: mean-abs ~8e-6, max-abs ~6e-5 -- the limb split's chaos
+    floor, which an order change cannot go under."""
+    _, tp = params
+    tok = torch.from_numpy(_random_token_reads(np.random.default_rng(31), 2048, 100))
+    plain = lstm_cuda.bilstm_logits_high_plain(tp, tok).numpy()
+    blocked = lstm_cuda.bilstm_logits_high_plain(tp, tok, k_block=16).numpy()
+    r = lstm_cuda.tc_gate("high", blocked, plain, blocked)
+    assert r["max_abs"] > 0 and r["within_gate"], r
+
+
+def _faulty_high_plain(tp, tokens, fault, k_block=16):
+    """bilstm_logits_high_plain with one planted fault (None: none), summed
+    in 16-wide k blocks as a kernel sums: a limb product dropped, hlo left
+    unrounded, the exp form of the sigmoid, a bf16-rounded token row, the
+    token row of the next step, or two gates swapped."""
+    limbs = [lstm_cuda.split_bf16(w) for w in (tp.w_hh_f, tp.w_hh_b)]
+
+    def sig(x):
+        if fault == "exp_sigmoid":
+            return torch.sigmoid(x)
+        return 0.5 * torch.tanh(0.5 * x) + 0.5
+
+    def cell(h, c, gates_x, d):
+        hhi, hlo = lstm_cuda.split_bf16(h)
+        if fault == "hlo_unrounded":
+            hlo = h - hhi
+        if fault == "whi_hlo_dropped":
+            hlo = torch.zeros_like(hlo)
+        whi, wlo = limbs[d]
+        if fault == "wlo_hhi_dropped":
+            wlo = torch.zeros_like(wlo)
+        if fault == "token_row_bf16":
+            gates_x = lstm_cuda.bf16_round(gates_x)
+        gates = lstm_cuda.high_product(hhi, hlo, whi, wlo, k_block) + gates_x
+        i, f, g, o = gates.chunk(4, dim=-1)
+        if fault == "i_f_swapped":
+            i, f = f, i
+        c_new = sig(f) * c + sig(i) * torch.tanh(g)
+        return sig(o) * torch.tanh(c_new), c_new
+
+    if fault == "next_token_row":
+        tokens = tokens.roll(-1, dims=1)
+    last_out = tb.bilstm_last_out(tp, tokens, None, semantics="dense",
+                                  bwd_init=None, cell=cell)
+    return tb.head(tp, last_out).numpy()
+
+
+@pytest.fixture(scope="module")
+def high_fault_reads(params):
+    """Reads for the planted high faults (T = 100), the plain high logits
+    and the yardstick's on the npz weights, and the plain logits with
+    W_hh = 0; the fault-free copy of the plain version is checked against
+    the real one bit for bit (at k_block 1 and 16)."""
+    _, tp = params
+    tok = torch.from_numpy(_random_token_reads(np.random.default_rng(37), 512, 100))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain = lstm_cuda.bilstm_logits_high_plain(tp, tok).numpy()
+        yard = lstm_cuda.bilstm_logits_high_plain(tp, tok, k_block=16).numpy()
+        np.testing.assert_array_equal(_faulty_high_plain(tp, tok, None, 1), plain)
+        np.testing.assert_array_equal(_faulty_high_plain(tp, tok, None), yard)
+        plain0 = lstm_cuda.bilstm_logits_high_plain(
+            lstm_cuda.zero_product_params(tp), tok).numpy()
+    finally:
+        torch.set_num_threads(n)
+    return tok, plain, yard, plain0
+
+
+# planted high faults -> (TC_GATE["high"] sees it on the npz weights at
+# T = 100, bit identity with W_hh = 0 sees it). A fault that moves each step
+# by about an ulp, as a change of summation order does, lies under the limb
+# split's chaos floor (exp_sigmoid: mean-abs ~8e-6 against the order's
+# ~8e-6), and one in the product vanishes with W_hh = 0
+HIGH_FAULTS = {
+    "wlo_hhi_dropped": (True, False), "whi_hlo_dropped": (True, False),
+    "exp_sigmoid": (False, True), "token_row_bf16": (True, True),
+    "next_token_row": (True, True), "i_f_swapped": (True, True),
+}
+
+
+def _high_checks(tp, high_fault_reads, fault):
+    """(the tolerance's readings, bit identity with W_hh = 0) of the plain
+    high version with `fault` planted, summed in 16-wide k blocks as a
+    kernel sums."""
+    tok, plain, yard, plain0 = high_fault_reads
+    r = lstm_cuda.tc_gate("high", _faulty_high_plain(tp, tok, fault), plain, yard)
+    zero = _faulty_high_plain(lstm_cuda.zero_product_params(tp), tok, fault)
+    return r, np.array_equal(zero, plain0)
+
+
+@pytest.mark.parametrize("fault", list(HIGH_FAULTS))
+def test_high_gate_rejects_a_planted_fault(params, high_fault_reads, fault,
+                                           one_thread):
+    """The high kernel's two checks against a plain version with one op
+    wrong: each fault falls outside TC_GATE["high"] (by its mean-abs: a
+    dropped limb product or a bf16 token row reads 4.6e-3 to 7.7e-3 against
+    the gate's 5e-5) or breaks bit identity with W_hh = 0, which a right
+    kernel keeps; the table HIGH_FAULTS says which, and the test holds both
+    to it."""
+    _, tp = params
+    r, same0 = _high_checks(tp, high_fault_reads, fault)
+    tolerance_sees, zero_sees = HIGH_FAULTS[fault]
+    assert r["within_gate"] is not tolerance_sees, r
+    if tolerance_sees:
+        assert r["mean_abs"] > lstm_cuda.TC_GATE["high"]["mean_abs"], r
+    assert same0 is not zero_sees
+
+
+def test_high_gate_cannot_see_hlo_rounding(params, high_fault_reads, one_thread):
+    """hlo left unrounded (fp32 h - hhi in the product) moves the low limb
+    by less than 2^-17 of h: on the npz weights it reads like a change of
+    summation order (mean-abs ~6e-6) and lies inside TC_GATE["high"], and
+    with W_hh = 0 the product it feeds is gone. Neither check sees it; a
+    tensor-core kernel cannot make this fault as such, since the mma takes
+    hlo as a bf16 operand (only its rounding could differ)."""
+    _, tp = params
+    r, same0 = _high_checks(tp, high_fault_reads, "hlo_unrounded")
+    assert r["within_gate"] and r["mean_abs"] <= 2 * r["yardstick"]["mean_abs"], r
+    assert same0
+
+
+@pytest.mark.parametrize("mode", ["high", "fast", "fast_bf16"])
+def test_zero_product_weights_make_the_order_irrelevant(params, mode, one_thread):
+    """With W_hh = 0 the plain version summed in 16-wide k blocks equals
+    the one summed k ascending, bit for bit (on the npz weights they
+    differ): the product is exactly zero in any order, so the tensor-core
+    kernels must match their plain versions bit for bit there."""
+    _, tp = params
+    tok = torch.from_numpy(_random_token_reads(np.random.default_rng(41), 256, 100))
+    p0 = lstm_cuda.zero_product_params(tp)
+    np.testing.assert_array_equal(lstm_cuda.YARDSTICK[mode](p0, tok).numpy(),
+                                  lstm_cuda.PLAIN[mode](p0, tok).numpy())
+    assert not np.array_equal(lstm_cuda.YARDSTICK[mode](tp, tok).numpy(),
+                              lstm_cuda.PLAIN[mode](tp, tok).numpy())
 
 
 def test_high_plain_is_the_limb_arithmetic(params, batch):
@@ -446,23 +601,28 @@ def test_kernel_matches_plain_on_card(cuda_params, mode, semantics, k):
     assert lstm_cuda.LAUNCHES[mode] == 1
     ref = plain(cuda_params, tok, lens, semantics=semantics, bwd_init=init)
     got, ref = got.cpu().numpy(), ref.cpu().numpy()
-    if mode not in lstm_cuda.FAST_GATE:
+    if mode not in lstm_cuda.TC_GATE:
         _assert_close(got, ref)
         return
     # the tensor cores sum in their own order: the stated gate, beside the
     # yardstick on the same reads
-    yard = lstm_cuda.bilstm_logits_fast_plain(
-        cuda_params, tok, lens, semantics=semantics, bwd_init=init, k_block=16,
-        state_dtype=torch.bfloat16 if mode == "fast_bf16" else torch.float32)
+    yard = lstm_cuda.YARDSTICK[mode](cuda_params, tok, lens, semantics=semantics,
+                                     bwd_init=init)
     assert np.isfinite(got).all()
-    r = lstm_cuda.fast_gate(mode, got, ref, yard.cpu().numpy())
+    r = lstm_cuda.tc_gate(mode, got, ref, yard.cpu().numpy())
     assert r["within_gate"], r
+    # and bit for bit where no order can change the product
+    p0 = lstm_cuda.zero_product_params(cuda_params)
+    assert torch.equal(
+        lstm_cuda.bilstm_logits_cuda(p0, tok, lens, semantics=semantics,
+                                     mode=mode, bwd_init=init),
+        plain(p0, tok, lens, semantics=semantics, bwd_init=init))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["fast", "fast_bf16"])
+@pytest.mark.parametrize("mode", ["high", "fast", "fast_bf16"])
 @pytest.mark.parametrize("semantics", ["dense", "packed"])
-def test_fast_kernels_are_row_invariant_on_card(cuda_params, mode, semantics):
+def test_tc_kernels_are_row_invariant_on_card(cuda_params, mode, semantics):
     """A read's logits depend only on its own tokens, bit for bit: the
     same reads shuffled, and some of them inside a batch of another size."""
     rng = np.random.default_rng(13)
