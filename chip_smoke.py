@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # the whole check (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch
+    python3 chip_smoke.py --cards    # build + the main path, then at -d 0,1
+                                     # (needs two cards)
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -30,9 +32,11 @@ Phases, one JSON line each; any failure exits non-zero:
             exact (information, not a gate)
   timing    kernel and plain times, the bound, and the cuDNN LSTM yardstick
             (fp32 for exact/high, bf16 for the fast kernels) at B=262144,
-            T=100; the bound is the largest of the bytes, the products at
-            their type's peak, and the cell: its instructions at the CUDA
-            cores' issue rate or its MUFU ones at theirs
+            T=100; the bound is the larger of the bytes and the compute: for
+            the tensor-core kernels the larger of the products at their
+            type's peak and the cell (its instructions at the CUDA cores'
+            issue rate or its MUFU ones at theirs); for exact, whose fp32
+            products and cell issue on the same CUDA cores, their sum
   main      the CLI main path (paired gz, -l 100, -e both) over 2 x 262144
             reads with a cleared parity-marker cache, its partition checked
             read for read against the plain exact labels on the card, and
@@ -52,6 +56,25 @@ Phases, one JSON line each; any failure exits non-zero:
             CLI run over 2 x 16384 pairs checked against plain exact labels
   trace     the main path again under --trace-dir: the card's busy share of
             the run's wall time, read from the torch.profiler trace
+  resume    the main path with --resume, its wall against plain runs of the
+            same command (plain, resume, resume, plain) and the main
+            phase's, and at --chunk_size 1 (16 chunks): once in full, then in a
+            subprocess killed (SIGKILL) once its manifest counts >= 2
+            completed chunks, and relaunched; outputs equal the main
+            phase's, the manifest is gone, and the relaunch launches high
+            for fewer batches than the full run
+  hosts     the main path as two hosts on the one card: a coordinated pair
+            (--coordinator, a gloo group; host 0 merges the parts and logs
+            the main phase's counts) and an uncoordinated pair (--hosts 2,
+            whose .host000/.host001 shards concatenate to the main phase's
+            outputs); each host's wall and high launches
+  cards     with two cards or more: the main path at -d 0,1, outputs equal
+            to the main phase's, high launched on each card; with one card
+            a line that says it was skipped
+
+Every path's outputs are compared decompressed, byte for byte. The
+subprocess phases run the CLI's main through CLI_CHILD, which prints the
+run's wall and kernel launches as a JSON line.
 
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of the JAX package.
@@ -553,6 +576,9 @@ def phase_timing(params, quick, tc_plain, sass):
     # the CUDA cores: the instructions of one cell in the mode's micro-kernel
     # (read from the SASS in the build phase) at the issue rate, or its MUFU
     # instructions at theirs, whichever takes longer
+    # For exact the fp32 products (FFMA) and the cell issue on the same
+    # CUDA-core slots, so its compute takes their sum; the tensor-core
+    # kernels overlap their products with the cell, so theirs is the larger.
     w_bytes = {"exact": 4, "high": 4, "fast": 2, "fast_bf16": 2}
     flops = 2.0 * 2 * T * G * H * B
     cells = 2.0 * T * H * B
@@ -569,13 +595,18 @@ def phase_timing(params, quick, tc_plain, sass):
             cell["insns"] / CUDA_CORE_INSTR_PER_S, cell["mufu"] / MUFU_PER_S)
         lib = "bf16" if mode.startswith("fast") else "fp32"
         res[mode]["library_ms"] = lib_ms[lib]
-        res[mode]["bound_ms"] = max(bytes_ms, ops_ms[mode], cell_ms or 0.0)
-        res[mode]["bound_by"] = ("bytes" if bytes_ms >= max(ops_ms[mode], cell_ms or 0.0)
-                                 else "operations")
+        if mode == "exact":
+            compute_ms = ops_ms[mode] + (cell_ms or 0.0)
+        else:
+            compute_ms = max(ops_ms[mode], cell_ms or 0.0)
+        res[mode]["bound_ms"] = max(bytes_ms, compute_ms)
+        res[mode]["bound_by"] = "bytes" if bytes_ms >= compute_ms else "operations"
         emit("timing", kernel=mode, B=B, T=T, library=f"cudnn_{lib}",
              **(high_placement() if mode == "high" else {}),
              library_err=lib_err[lib], library_calls=-(-B // LIB_CHUNK),
              bytes_ms=bytes_ms, products_ms=ops_ms[mode], cell_ms=cell_ms,
+             compute_ms=compute_ms,
+             compute_rule="products + cell" if mode == "exact" else "max(products, cell)",
              cell_insns=cell and cell["insns"], cell_mufu=cell and cell["mufu"],
              step_loop_insns_per_cell=sass.get(mode, {}).get("step_loop_insns_per_cell"),
              fp32_cuda_core_ms=1e3 * flops / FP32_FLOPS, **res[mode])
@@ -955,6 +986,213 @@ def phase_trace(tmp, inputs, want, untraced_wall):
     check(n_kernels > 0, "the trace holds no kernel of the card")
 
 
+# the CLI's main in a process of its own; its last stdout line is a JSON
+# object with the run's wall (from main's call to the card's last kernel)
+# and the kernel launches, in all and per card
+CLI_CHILD = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from ribodetector_tpu_torch.cli import main
+from ribodetector_tpu_torch.ops import lstm_cuda
+t0 = time.perf_counter()
+main(sys.argv[2:])
+torch.cuda.synchronize()
+print(json.dumps({"wall_s": time.perf_counter() - t0,
+                  "launches": dict(lstm_cuda.LAUNCHES),
+                  "card_launches": {str(k): v for k, v in lstm_cuda.CARD_LAUNCHES.items()}}),
+      flush=True)
+"""
+CHILDREN = []  # every process started, killed at exit if still running
+
+
+def spawn(argv):
+    """The CLI in a child process (stdout and stderr piped)."""
+    proc = subprocess.Popen([sys.executable, "-c", CLI_CHILD, REPO, *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def finish(proc, what, timeout=600):
+    """Wait for a child; fail unless it exited 0. Returns (its JSON line,
+    its stderr)."""
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1]), err
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def decompressed(path):
+    op = gzip.open if path.endswith("gz") else open
+    with op(path, "rb") as fh:
+        return fh.read()
+
+
+def same_outputs(files, want, what):
+    """{label: [file per side]} against the main phase's, decompressed."""
+    for label, paths in want.items():
+        for got, ref in zip(files[label], paths):
+            check(decompressed(got) == decompressed(ref),
+                  f"{what}: {os.path.basename(got)} differs from the main phase's output")
+
+
+def main_argv(tmp, tag, inputs):
+    """The main phase's command line, writing to outputs tagged `tag`."""
+    out, files = outputs(tmp, tag, True, "both")
+    return ["-l", "100", "-i", *inputs, *out, "-e", "both"], files
+
+
+def phase_resume(tmp, inputs, main_got, main_wall):
+    """--resume on the main path: in full (overhead against the main
+    phase), and at --chunk_size 1 in full, then killed after >= 2 chunks
+    and relaunched."""
+    import signal
+
+    _, want = outputs(tmp, "main", True, "both")
+    # plain, resume, resume, plain: the manifest's cost against adjacent
+    # runs of the same command without it (the main phase's wall also
+    # holds the startup probe and the stage timer)
+    walls = {"plain": [], "resume": []}
+    for kind in ("plain", "resume", "resume", "plain"):
+        argv, files = main_argv(tmp, f"resume_{kind}", inputs)
+        wall, launches = run_cli(argv + (["--resume"] if kind == "resume" else []))
+        same_outputs(files, want, f"resume ({kind} run)")
+        walls[kind].append(wall)
+        manifest = files[0][0] + ".progress.json"
+        check(not os.path.exists(manifest), "the manifest outlived a complete run")
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    emit("resume", run="full", walls_s=walls, main_wall_s=main_wall,
+         overhead=mean["resume"] / mean["plain"] - 1,
+         overhead_vs_main=mean["resume"] / main_wall - 1, launches=launches)
+
+    argv, files = main_argv(tmp, "resume_c1", inputs)
+    argv += ["--resume", "--chunk_size", "1"]
+    c1_wall, c1_launches = run_cli(argv)
+    same_outputs(files, want, "resume (--chunk_size 1)")
+    emit("resume", run="chunk_size_1", wall_s=c1_wall, launches=c1_launches)
+
+    argv, files = main_argv(tmp, "resume_kill", inputs)
+    argv += ["--resume", "--chunk_size", "1"]
+    manifest = files[0][0] + ".progress.json"
+    proc = spawn(argv)
+    done, deadline = 0, time.monotonic() + 300
+    while done < 2:
+        if proc.poll() is not None:
+            fail(f"the run ended (exit {proc.returncode}) before 2 chunks were "
+                 f"recorded, so it could not be interrupted: "
+                 f"{proc.stderr.read()[-2000:]}")
+        check(time.monotonic() < deadline, "no 2 completed chunks within 300 s")
+        if os.path.exists(manifest):
+            with open(manifest) as fh:
+                done = json.load(fh)["chunks_done"]
+        time.sleep(0.005)
+    proc.send_signal(signal.SIGKILL)
+    proc.communicate()
+    with open(manifest) as fh:
+        killed_at = json.load(fh)
+    check(killed_at["records_done"] < len(main_got),
+          f"the killed run had finished: {killed_at}")
+    res, _ = finish(spawn(argv), "the relaunched --resume run")
+    same_outputs(files, want, "resume (killed, relaunched)")
+    check(not os.path.exists(manifest), "the manifest outlived the relaunched run")
+    emit("resume", run="killed_relaunched", killed_after_chunks=killed_at["chunks_done"],
+         killed_after_records=killed_at["records_done"], relaunch_wall_s=res["wall_s"],
+         relaunch_launches=res["launches"], full_run_high=c1_launches["high"])
+    check(0 < res["launches"]["high"] < c1_launches["high"],
+          f"the relaunch launched high {res['launches']['high']} times, a full "
+          f"run {c1_launches['high']}")
+
+
+def logged_summary(err, after):
+    """The summary counts logged after the line holding `after`."""
+    text = re.sub(r"\x1b\[[0-9;]*m", "", err.split(after, 1)[1])
+    grab = {"num_read": r"Processed (\d+) sequences", "norrna": r"Detected (\d+) non-rRNA",
+            "rrna": r"Detected (\d+) rRNA", "unclf": r"Discarded (\d+) unclassified"}
+    return {k: int(re.search(v, text).group(1)) for k, v in grab.items()}
+
+
+def phase_hosts(tmp, inputs, main_got):
+    """Two hosts on the one card over the main path: coordinated (a gloo
+    group; host 0 merges) and uncoordinated (per-host shards)."""
+    _, want = outputs(tmp, "main", True, "both")
+    want_counts = {"num_read": len(main_got), "norrna": int((main_got == 0).sum()),
+                   "rrna": int((main_got == 1).sum()), "unclf": int((main_got == -1).sum())}
+
+    argv, files = main_argv(tmp, "hosts_coord", inputs)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [spawn(argv + ["--hosts", "2", "--host-id", str(h), "--coordinator",
+                           f"127.0.0.1:{port}", "--num-hosts", "2"]) for h in (0, 1)]
+    res = [finish(p, f"coordinated host {h}") for h, p in enumerate(procs)]
+    pair_wall = time.perf_counter() - t0
+    same_outputs(files, want, "hosts (coordinated)")
+    counts = logged_summary(res[0][1], "Merged outputs from 2 hosts")
+    emit("hosts", run="coordinated", pair_wall_s=pair_wall,
+         hosts=[{"host": h, "wall_s": r["wall_s"], "high": r["launches"]["high"]}
+                for h, (r, _) in enumerate(res)], merged_counts=counts)
+    check(counts == want_counts, f"host 0's summary {counts} is not the main "
+                                 f"phase's {want_counts}")
+    check(all(r["launches"]["high"] > 0 for r, _ in res), "a host never launched high")
+    leftovers = [f for f in os.listdir(tmp) if ".parts" in f]
+    check(not leftovers, f"parts left behind: {leftovers}")
+
+    argv, files = main_argv(tmp, "hosts_shards", inputs)
+    t0 = time.perf_counter()
+    procs = [spawn(argv + ["--hosts", "2", "--host-id", str(h)]) for h in (0, 1)]
+    res = [finish(p, f"uncoordinated host {h}") for h, p in enumerate(procs)]
+    pair_wall = time.perf_counter() - t0
+
+    def shard(path, h):
+        k = f"host{h:03d}"
+        return path[: -len("gz")] + k + ".gz" if path.endswith("gz") else path + "." + k
+
+    norrna = files[0]
+    for label, paths in files.items():
+        for path in paths:
+            if label == -1:  # <output>.unclassified.gz of each host's output
+                side = [p + ".unclassified.gz" for p in norrna].index(path)
+                parts = [shard(norrna[side], h) + ".unclassified.gz" for h in (0, 1)]
+            else:
+                parts = [shard(path, h) for h in (0, 1)]
+            with open(path, "wb") as dst:
+                for part in parts:
+                    with open(part, "rb") as src:
+                        shutil.copyfileobj(src, dst)
+    same_outputs(files, want, "hosts (uncoordinated shards, concatenated)")
+    emit("hosts", run="uncoordinated", pair_wall_s=pair_wall,
+         hosts=[{"host": h, "wall_s": r["wall_s"], "high": r["launches"]["high"]}
+                for h, (r, _) in enumerate(res)])
+    check(all(r["launches"]["high"] > 0 for r, _ in res), "a host never launched high")
+
+
+def phase_cards(tmp, inputs):
+    """The main path split over two cards (-d 0,1), where there are two."""
+    import torch
+
+    from ribodetector_tpu_torch.ops import lstm_cuda
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit("cards", skipped=f"{n} CUDA device visible")
+        return
+    _, want = outputs(tmp, "main", True, "both")
+    argv, files = main_argv(tmp, "cards", inputs)
+    wall, launches = run_cli(argv + ["-d", "0,1"])
+    per_card = {k: dict(v) for k, v in lstm_cuda.CARD_LAUNCHES.items()}
+    same_outputs(files, want, "cards (-d 0,1)")
+    emit("cards", cards=2, wall_s=wall, launches=launches, card_launches=per_card)
+    check(all(per_card.get(k, {}).get("high", 0) > 0 for k in (0, 1)),
+          f"high was not launched on both cards: {per_card}")
+
+
 def main(argv):
     quick = "--quick" in argv
     import torch
@@ -969,6 +1207,12 @@ def main(argv):
     from ribodetector_tpu_torch.models import load_params
 
     params = load_params(NPZ, "cuda")
+    if "--cards" in argv:
+        check(torch.cuda.device_count() >= 2, "--cards needs two CUDA cards")
+        with tempfile.TemporaryDirectory() as tmp:
+            _, main_inputs, _, _ = phase_main(params, tmp)
+            phase_cards(tmp, main_inputs)
+        return
     max_err, tc_plain = phase_kernels(params, quick)
     times = phase_timing(params, quick, tc_plain, sass)
     if quick:
@@ -980,6 +1224,9 @@ def main(argv):
         launches["fast"] = phase_serve(params, tmp)["fast"]
         launches["fast_bf16"] = phase_config(params, tmp)["fast_bf16"]
         phase_trace(tmp, main_inputs, main_got, main_wall)
+        phase_resume(tmp, main_inputs, main_got, main_wall)
+        phase_hosts(tmp, main_inputs, main_got)
+        phase_cards(tmp, main_inputs)
     kernels = [
         {
             "name": f"bilstm_{mode}",
@@ -1002,4 +1249,10 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    try:
+        main(sys.argv[1:])
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

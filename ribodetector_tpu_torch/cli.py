@@ -5,9 +5,9 @@ the reference entry points, ribodetector/detect.py:763-809 and
 detect_cpu.py:776-825): the same flags, config keys, log lines and output
 conventions. ``main`` runs the classify step on the card and fails when no
 CUDA device is visible; ``main_cpu`` pins the CPU (the plain
-recurrence). Flags whose paths this package does not carry yet (--resume,
---hosts > 1, --coordinator) are refused with a "not yet ported" error
-before any work starts.
+recurrence). --coordinator joins the cooperating hosts into one
+``torch.distributed`` gloo group before the Predictor is built (host
+counters and barriers only; the outputs go through a shared filesystem).
 """
 
 import argparse
@@ -25,7 +25,7 @@ def build_arg_parser():
     args.add_argument("-c", "--config", default=None, type=str,
                       help="Path of config file")
     args.add_argument("-d", "--deviceid", default=None, type=str,
-                      help="Index of the CUDA device to use. (default: the current device)")
+                      help="Index of the CUDA device to use, or a comma list of indices (a power-of-two\ncount) to split each device batch over several cards. (default: the current device)")
     args.add_argument("-l", "--len", type=int, required=True,
                       help="Sequencing read length. Note: the accuracy reduces for reads shorter than 40.")
     args.add_argument("-i", "--input", default=None, type=str, nargs="*", required=True,
@@ -57,7 +57,7 @@ none: give label based on the mean probability of read pair.
     args.add_argument("--trace-dir", default=None, type=str,
                       help="Capture a torch.profiler trace of the run (host ops, and the card's kernels and\ncopies when on the card) into this directory as a Chrome trace JSON")
     args.add_argument("--resume", action="store_true",
-                      help="Restartable streaming: after each completed chunk, record every output's\nbyte offset in <output>.progress.json; an interrupted run truncates the\noutputs to the last completed offset and continues from there.\n(not yet ported in ribodetector_tpu_torch)")
+                      help="Restartable streaming: after each completed chunk, record every output's\nbyte offset in <output>.progress.json; an interrupted run truncates the\noutputs to the last completed offset and continues from there.")
     args.add_argument("--semantics", default=None, type=str,
                       choices=["dense", "packed"],
                       help="Recurrence/gather semantics to reproduce: dense = reference CPU/ONNX path,\npacked = reference GPU/cuDNN PackedSequence path. (default: config value, dense)")
@@ -82,11 +82,11 @@ compute dtype whatever the precision.""")
                       metavar="{1..12}",
                       help="libdeflate compression level for gz outputs on the native path\n(default 3 = the reference's zlib-level-5 ratio at ~3.5x the speed;\n1 = ~2x faster deflate at ~4%% worse ratio -- use when the write stage\nbottlenecks, e.g. many gz outputs on few cores).")
     args.add_argument("--hosts", default=1, type=int,
-                      help="Shard the input stream over N cooperating hosts: each host classifies\nits round-robin share of the chunks and writes per-host output shards\n(<name>.hostNNN; gz shards concatenate into a valid gz file).\nRun once per host with a distinct --host-id. (default: 1; values > 1 are not yet ported in ribodetector_tpu_torch)")
+                      help="Shard the input stream over N cooperating hosts: each host classifies\nits round-robin share of the chunks and writes per-host output shards\n(<name>.hostNNN; gz shards concatenate into a valid gz file).\nRun once per host with a distinct --host-id. (default: 1)")
     args.add_argument("--host-id", default=0, type=int,
                       help="This process's shard index in [0, --hosts). (default: 0)")
     args.add_argument("--coordinator", default=None, type=str,
-                      help="host:port of host 0 -- turns the --hosts mode into a coordinated\nmulti-process run: global summary counts are psum-merged over DCN and\nhost 0 concatenates all per-host shards into the final outputs\n(shared filesystem assumed). Requires --num-hosts and --host-id.\n(not yet ported in ribodetector_tpu_torch)")
+                      help="host:port of host 0 -- turns the --hosts mode into a coordinated\nmulti-process run (a torch.distributed gloo group over TCP): global summary\ncounts are summed over the group and host 0 concatenates all per-host parts\ninto the final outputs (shared filesystem assumed). Requires --num-hosts\nand --host-id.")
     args.add_argument("--num-hosts", default=None, type=int,
                       help="Total number of cooperating processes for --coordinator mode.")
     args.add_argument("--barrier-timeout", default=3600, type=int,
@@ -99,6 +99,36 @@ compute dtype whatever the precision.""")
 
 def _run(argv, device):
     args = build_arg_parser().parse_args(argv)
+    if args.coordinator is None:
+        _detect(args, device)
+        return
+    # multi-host runtime: one gloo process group, formed before the
+    # Predictor is built; rank and world size are the host id and count
+    if not args.num_hosts or args.num_hosts < 2:
+        raise SystemExit("--coordinator requires --num-hosts >= 2")
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{args.coordinator}",
+        rank=args.host_id, world_size=args.num_hosts,
+    )
+    args.hosts = dist.get_world_size()
+    args.host_id = dist.get_rank()
+    from ribodetector_tpu_torch.parallel.sharded import BarrierTimeout
+
+    try:
+        _detect(args, device)
+    except BarrierTimeout:
+        # a watchdog thread still sits in a collective: tearing the group
+        # down under it could hang the exit, so the process leaves it
+        raise
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    dist.destroy_process_group()
+
+
+def _detect(args, device):
     config_file = args.config if args.config is not None else DEFAULT_CONFIG
     config = ConfigParser.from_json(config_file)
     if args.kernel is not None:

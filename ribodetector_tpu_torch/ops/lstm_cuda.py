@@ -33,7 +33,8 @@ version (that is how the CPU tests and the CPU entry point run). The gather
 index is computed here, outside the kernel, and the Linear(256->2) head runs
 here: in fp32 for exact and high, and for the fast modes as the TPU's
 DEFAULT-precision dot does (bf16 operands, fp32 accumulate).
-``LAUNCHES`` counts kernel launches per mode.
+``LAUNCHES`` counts kernel launches per mode, ``CARD_LAUNCHES`` the same
+per card (CUDA device index) for runs over several cards.
 """
 
 import ctypes
@@ -56,6 +57,7 @@ from ribodetector_tpu_torch.models.bilstm import (
 
 MODES = ("exact", "high", "fast", "fast_bf16")
 LAUNCHES = {mode: 0 for mode in MODES}
+CARD_LAUNCHES = {}  # CUDA device index -> {mode: launches}
 # How close each tensor-core kernel is held to its plain version, on the
 # logits, beside the yardstick: the plain version with its product summed in
 # 16-wide k blocks (the mma's k-step, k_block=16) on the same reads, i.e.
@@ -127,6 +129,7 @@ def reset_launches():
     with _launch_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+        CARD_LAUNCHES.clear()
 
 
 def split_bf16(x):
@@ -397,4 +400,6 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
         )
     with _launch_lock:
         LAUNCHES[mode] += 1
+        card = CARD_LAUNCHES.setdefault(dev.index, dict.fromkeys(MODES, 0))
+        card[mode] += 1
     return head_default(params, out) if fast else head(params, out)

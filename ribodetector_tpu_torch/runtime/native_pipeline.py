@@ -24,9 +24,15 @@ All large buffers are allocated once and reused. FASTQ records with
 CRLF/trailing whitespace (flagged per record by the native parser) are
 re-parsed by the Python parser with identical behavior; FASTA is handled
 natively by FastaChunkStream.
+
+Restartable streaming (--resume, ResumeState) and the coordinated
+multi-host layout (--coordinator, DistributedParts) run through the same
+loop; with several cards on one host (-d a,b) each device batch is split
+into row slices, one per card (NativeRunner._device_call_with).
 """
 
 import io
+import json
 import os
 import queue
 import threading
@@ -36,6 +42,7 @@ from ribodetector_tpu_torch import native
 from ribodetector_tpu_torch.io.fastx import seq_parser
 from ribodetector_tpu_torch.io.format import get_seq_format
 from ribodetector_tpu_torch.io.gzfast import MemberGzipWriter, RawInflater, compress_member
+from ribodetector_tpu_torch.parallel.sharded import host_chunk_assignment
 
 from ribodetector_tpu_torch.runtime.buckets import PAD_B5 as _PAD_BYTE
 
@@ -551,7 +558,10 @@ class _RecordCursor:
                 self._c, self.eof = None, True
                 return False
             data, offsets, ptokens, ptokens2, lengths, clean, b2ok, n = chunk
-            # dirty-record text is materialized lazily at first take()
+            # dirty-record text is materialized lazily at first take():
+            # skip() drives ready() over every chunk too (--hosts round
+            # robin, --resume restart), and re-parsing windows the host
+            # never processes would waste (N-1)/N of the dirty-parse cost
             self._c = [
                 data, offsets, ptokens, ptokens2, lengths, b2ok, n, clean,
                 self._RECS_UNSET,
@@ -562,6 +572,16 @@ class _RecordCursor:
     def chunk_avail(self):
         """Rows left in the current window (call after ready() is True)."""
         return self._c[self._N] - self._pos
+
+    def skip(self, k):
+        """Skip up to k records (another host's chunk, or --resume restart);
+        returns the number actually skipped (< k only at end of stream)."""
+        done = 0
+        while done < k and self.ready():
+            step = min(k - done, self.chunk_avail())
+            self._pos += step
+            done += step
+        return done
 
     def take(self, k):
         """Advance k rows (k <= chunk_avail()). Returns (data,
@@ -632,6 +652,7 @@ class _Writer:
     adaptation entirely."""
 
     _DONE = object()
+    _CLOSE = object()
     POOL = 4
     BLOCK = 2 << 20
     # adaptive-drop trigger: > ADAPT_FRAC of wall blocked on scratch, with
@@ -678,6 +699,21 @@ class _Writer:
             if item is self._DONE:
                 return
             fh, payload, scratch = item
+            if fh is None:  # ordered callback (see call())
+                try:
+                    if self._exc is None:
+                        payload()
+                except BaseException as e:
+                    if self._exc is None:
+                        self._exc = e
+                continue
+            if payload is self._CLOSE:
+                try:
+                    fh.close()
+                except BaseException as e:  # pragma: no cover - disk errors
+                    if self._exc is None:
+                        self._exc = e
+                continue
             try:
                 # after a write error, keep draining so producers unblock
                 # and see the stored error
@@ -795,6 +831,19 @@ class _Writer:
         finally:
             sub.release()
 
+    def close_fh(self, fh):
+        """Enqueue an ordered close for fh: it happens strictly after every
+        write already enqueued for it."""
+        self._q.put((fh, self._CLOSE, None))
+
+    def call(self, fn):
+        """Enqueue fn to run on the writer thread strictly after everything
+        already enqueued (ordered side effects -- e.g. a --resume manifest
+        update that must not land before its chunk's writes are on disk).
+        Skipped after a write error; an exception from fn is stored and
+        propagated like a write error."""
+        self._q.put((None, fn, None))
+
     def close(self):
         self._q.put(self._DONE)
         self._t.join()
@@ -810,10 +859,47 @@ def records_per_chunk(p):
     whole-file mode, moderate streaming chunks so the host allocator reuses
     warm arenas (fresh multi-hundred-MB buffers hit this host's slow
     first-touch page faults) -- memory stays bounded either way, strictly
-    better than the reference's load-everything behavior (detect.py:131-132)."""
+    better than the reference's load-everything behavior (detect.py:131-132).
+    Shared by the runner and the --resume manifest so a resumed run always
+    skips the same record count per completed chunk."""
     if p.chunk_size is not None:
         return p.batch_size * p.chunk_size
     return max(p.batch_size, 131072)
+
+
+def card_slices(st, sl, n, paired):
+    """[(token blocks, length blocks)] of each of n cards: contiguous row
+    slices of the staged batch, as equal as the row count allows. For a
+    pair batch (R1 rows in the first half, R2 in the second) a card takes
+    the same slice of both halves, R1 block first."""
+    rows = len(st) // 2 if paired else len(st)
+    bounds = [rows * k // n for k in range(n + 1)]
+    out = []
+    for a, b in zip(bounds, bounds[1:]):
+        if paired:
+            out.append(([st[a:b], st[rows + a : rows + b]],
+                        [sl[a:b], sl[rows + a : rows + b]]))
+        else:
+            out.append(([st[a:b]], [sl[a:b]]))
+    return out
+
+
+def _to_device(blocks, dev):
+    """numpy row blocks -> one tensor on dev holding them in order. A
+    single block is copied as it is (asynchronously from pinned memory);
+    several land in one device buffer, block by block."""
+    import torch
+
+    if len(blocks) == 1:
+        return torch.from_numpy(blocks[0]).to(dev, non_blocking=True)
+    first = blocks[0]
+    out = torch.empty((sum(len(b) for b in blocks), *first.shape[1:]),
+                      dtype=torch.from_numpy(first[:0]).dtype, device=dev)
+    row = 0
+    for b in blocks:
+        out[row : row + len(b)].copy_(torch.from_numpy(b), non_blocking=True)
+        row += len(b)
+    return out
 
 
 def records_from_chunk_bytes(data, offsets, n):
@@ -885,14 +971,16 @@ class _ChunkAcc:
     batches until older accumulators have written and unpinned, and it
     splits the current
     accumulator (same chunk, same file handles) when that accumulator
-    alone would span too many windows.
+    alone would span too many windows. close_fhs marks the chunk's final
+    accumulator (parts mode closes the chunk's part files after it
+    writes).
     """
 
     MAX_WINDOWS = 3  # per side, per accumulator
 
     __slots__ = (
         "ci", "fhs", "labels", "n", "inflight", "closed", "segs", "segs2",
-        "winids",
+        "close_fhs", "winids", "records_cum",
     )
 
     def __init__(self, ci, fhs, cap):
@@ -904,7 +992,9 @@ class _ChunkAcc:
         self.closed = False
         self.segs = []  # (data, offsets_rows_copy, recs, start, cnt, row0)
         self.segs2 = []  # paired: same boundaries for the R2 side
+        self.close_fhs = True
         self.winids = (set(), set())  # per-side window ids this acc pins
+        self.records_cum = 0  # records through this chunk, for the manifest
 
     def would_overflow(self, new_ids):
         """True when noting these per-side window ids would exceed this
@@ -925,6 +1015,8 @@ class NativeRunner:
 
     def __init__(self, predictor):
         self.p = predictor
+        self._hosts = getattr(predictor, "hosts", 1)
+        self._host_id = getattr(predictor, "host_id", 0)
         # tuning knobs (config runtime.depth / runtime.dispatchers):
         # pipeline depth and H2D dispatcher-thread count
         rt = predictor.config.get("runtime", {})
@@ -958,6 +1050,8 @@ class NativeRunner:
 
         self._last_log = time.monotonic()
         self._last_read = 0
+        self._resume = None
+        self._parts = None
         self._bucket_dispatcher = None
         # live progress bar (visual parity with the reference's tqdm):
         # tqdm auto-disables on non-tty (disable=None), so logs/pipes keep
@@ -1039,12 +1133,14 @@ class NativeRunner:
         emit = (
             ("pair_labels", p.args.ensure) if p.is_paired else "labels"
         )
+        # one classify step per card for each lane (a tuple of one on a
+        # single card)
         infers = [
-            p._build_infer(packed_max_len=tb, emit=emit, pad_gap=p.len - tb)
+            p._build_infers(packed_max_len=tb, emit=emit, pad_gap=p.len - tb)
             for tb in buckets
         ]
         rows = 2 * self.dbs if p.is_paired else self.dbs
-        pinned = p.device.type == "cuda"
+        pinned = p.devices[0].type == "cuda"
         stagers = [
             _BucketStager(rows, native.b5_packed_len(tb), self.dbs, pinned)
             for tb in buckets
@@ -1058,28 +1154,54 @@ class NativeRunner:
             # to output order. Building an infer launches nothing, so the
             # extra lane costs nothing unless a b2 record arrives.
             infers.append(
-                p._build_infer(packed_max_len=p.len, emit=emit, pad_gap=0, fmt="b2")
+                p._build_infers(packed_max_len=p.len, emit=emit, pad_gap=0, fmt="b2")
             )
             stagers.append(
                 _BucketStager(rows, native.b2_packed_len(p.len), self.dbs, pinned)
             )
         return infers, stagers
 
-    def _device_call_with(self, infer, st, sl):
+    def _device_call_with(self, infers, st, sl):
         """Runs on an rd-dispatch pool thread: host->device copy of the
         packed rows (asynchronous from pinned staging memory), the classify
         step, and a blocking copy of the labels back -- so the staging slot
-        is free to reuse once the future resolves."""
+        is free to reuse once the future resolves.
+
+        With several cards (-d a,b) the batch splits into contiguous row
+        slices, one per card, each copied to its card and classified there
+        on that card's current stream; every slice is launched before any
+        labels are fetched, and the labels come back in row order. A pair
+        batch holds R1 in its first half and R2 in its second, so a card
+        takes the same slice of both halves and reconciles its own pairs
+        (ensure "none" sums the two ends' logits, which per-read labels
+        could not). A read's logits do not depend on its batch (the
+        kernels' row invariance), so the labels equal a one-card run's."""
+        devices = self.p.devices
+        with self.p.timer.stage("h2d_call"):
+            if len(devices) == 1:
+                return self._classify_on(infers[0], devices[0], [st], [sl]).cpu().numpy()
+            outs = [
+                self._classify_on(infer, dev, toks, lens)
+                for infer, dev, (toks, lens) in zip(
+                    infers, devices,
+                    card_slices(st, sl, len(devices), self.p.is_paired),
+                )
+            ]
+            return np.concatenate([o.cpu().numpy() for o in outs])
+
+    def _classify_on(self, infer, dev, toks, lens):
+        """Launch `infer` on dev over the row blocks `toks` (and `lens`,
+        for packed semantics) stacked in order; returns the device result."""
+        import contextlib
+
         import torch
 
-        dev = self.p.device
-        with self.p.timer.stage("h2d_call"):
-            st_dev = torch.from_numpy(st).to(dev, non_blocking=True)
+        ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        with ctx:
+            st_dev = _to_device(toks, dev)
             if self._need_lengths:
-                out = infer(st_dev, torch.from_numpy(sl).to(dev, non_blocking=True))
-            else:
-                out = infer(st_dev)
-            return out.cpu().numpy()
+                return infer(st_dev, _to_device(lens, dev))
+            return infer(st_dev)
 
     def _dispatch_bucket(self, pending, infers, stagers, partial, b, acc):
         tok, lens, idxs, fill = partial[b]
@@ -1209,6 +1331,36 @@ class NativeRunner:
         acc.segs.clear()
         acc.segs2.clear()
         self._unpin_windows(acc)
+        if not acc.close_fhs:
+            return
+        # chunk complete: the manifest update runs ON THE WRITER THREAD,
+        # ordered after every write just enqueued for this chunk, so there
+        # is no per-chunk barrier here and DEPTH batches stay in flight
+        # across chunk boundaries. The counts/records snapshots cover
+        # exactly the chunks <= acc.ci because accumulators write FIFO.
+        p, ci = self.p, acc.ci
+        records, snap = acc.records_cum, dict(counts)
+        if self._resume is not None:
+            resume = self._resume
+            self._writer.call(
+                lambda: resume.complete_chunk(p, ci, fhs, records, snap)
+            )
+        elif self._parts is not None:
+            for group in fhs.values():
+                for fh in group:
+                    self._writer.close_fh(fh)
+            # own-chunk completion manifest: strictly AFTER the ordered
+            # closes above, so it never names a chunk whose parts are still
+            # open (a group relaunch skips it)
+            parts = self._parts
+            self._writer.call(
+                lambda: parts.complete_chunk(p, ci, records, snap)
+            )
+
+    def _skip_records(self, curs, k):
+        with self.p.timer.stage("parse"):
+            for c in curs:
+                c.skip(k)
 
     def run_bucketed(self, buckets):
         """THE run loop: single- and paired-end bucketed streaming (the
@@ -1216,18 +1368,27 @@ class NativeRunner:
         one device call for on-device ensure reconciliation). Buckets-off
         runs go through here too, with a single full-size bucket list
         [max_len] -- routing is then the identity and each partial chunk
-        tail still gets the power-of-two ladder flush sizes."""
+        tail still gets the power-of-two ladder flush sizes.
+
+        --resume writes straight to the final outputs and completes the
+        offset manifest on the writer thread (ResumeState); --hosts skips
+        the chunks other hosts own (parse only); --coordinator writes each
+        own chunk to part files (DistributedParts), and with --resume skips
+        the own chunks an earlier run of the group completed."""
         p = self.p
         from ribodetector_tpu_torch.runtime.buckets import route_records
 
         paired = p.is_paired
+        p._resume_buckets = list(buckets)  # part of the manifest config key
+        distributed = getattr(p, "distributed", False)
         counts = {"norrna": 0, "rrna": 0, "unclf": 0}
         num_read = 0
         rpc = self._records_per_chunk()
         # everything that opens fds/threads happens INSIDE the try: a
-        # failure while opening outputs must still release the input streams
+        # failure in manifest restore or output opening must still release
+        # the input streams
         ok = False
-        fhs = None
+        resume = parts = fhs = None
         streams, curs = [], []
         try:
             streams = [
@@ -1237,7 +1398,25 @@ class NativeRunner:
                 )
                 for f in p.input
             ]
-            fhs = p._open_outputs(binary=True)
+            want_resume = getattr(p.args, "resume", False)
+            resume = ResumeState(p) if want_resume and not distributed else None
+            self._resume = resume
+            parts = DistributedParts(p) if distributed else None
+            self._parts = parts
+            if resume:
+                num_read, counts = resume.restore(p)
+            elif parts and want_resume:
+                # coordinated group relaunch: seed from this host's
+                # completion manifest; completed own chunks are skipped
+                # parse-only below
+                num_read, counts = parts.restore(p)
+            elif not parts:
+                fhs = p._open_outputs(binary=True)
+            if self._pbar is not None and num_read:
+                # the live bar resumes from the restored record count so
+                # its total agrees with the final summary
+                self._pbar.n = num_read
+                self._pbar.refresh()
             self._counts = counts
             self._writer = _Writer(
                 compress_threads=self._compress_threads(),
@@ -1274,12 +1453,32 @@ class NativeRunner:
             infers, stagers = self._bucket_infers(buckets)
             partial = [None] * len(stagers)
             pending = deque()
-            ci = 0
+            ci = resume.chunks_done if resume else 0
+            if ci:
+                self._skip_records(curs, ci * rpc)
             while True:
                 with timer.stage("parse"):
                     if not all(c.ready() for c in curs):
                         break
-                acc = _ChunkAcc(ci, fhs, rpc)
+                if self._hosts > 1 and not host_chunk_assignment(
+                    ci, self._hosts, self._host_id
+                ):
+                    self._skip_records(curs, rpc)
+                    ci += 1
+                    continue
+                if parts and parts.skip_chunk(ci):
+                    # own chunk already completed before a group relaunch:
+                    # its parts are final on disk -- advance parse-only
+                    self._skip_records(curs, rpc)
+                    ci += 1
+                    continue
+                if resume:
+                    chunk_fhs = resume.open_chunk(p, ci)
+                elif parts:
+                    chunk_fhs = parts.open_chunk(p, ci)
+                else:
+                    chunk_fhs = fhs
+                acc = _ChunkAcc(ci, chunk_fhs, rpc)
                 done = 0
                 while done < rpc:
                     with timer.stage("parse"):
@@ -1291,8 +1490,9 @@ class NativeRunner:
                     if acc.segs and acc.would_overflow(new_ids):
                         # per-acc window-span bound (see _ChunkAcc): split the
                         # write accumulator mid-chunk
+                        acc.close_fhs = False
                         self._flush_buckets(pending, infers, stagers, partial, acc)
-                        acc = _ChunkAcc(ci, fhs, rpc)
+                        acc = _ChunkAcc(ci, chunk_fhs, rpc)
                     # global budget: drain finished batches until the pinned
                     # window count (all unwritten accs) fits the stream slot
                     # pools -- older accs write FIFO and unpin as we drain
@@ -1332,6 +1532,9 @@ class NativeRunner:
                     acc.n += cnt
                     done += cnt
                 num_read += done
+                # the manifest's record count, set before the flush:
+                # _flush_buckets may write and complete the chunk at once
+                acc.records_cum = num_read
                 self._flush_buckets(pending, infers, stagers, partial, acc)
                 ci += 1
                 self._log_progress(num_read)
@@ -1341,7 +1544,10 @@ class NativeRunner:
             if self._pbar is not None:
                 self._pbar.close()
                 self._pbar = None
-            p._close_outputs(fhs)
+            if resume:
+                resume.merge(p)
+            elif not parts:
+                p._close_outputs(fhs)
             p._log_summary(num_read, counts)
             ok = True
         finally:
@@ -1353,12 +1559,14 @@ class NativeRunner:
             for s in streams:
                 s.close()
             if not ok:
-                self._abort_cleanup(fhs)
+                self._abort_cleanup(resume, parts, fhs)
 
-    def _abort_cleanup(self, fhs):
+    def _abort_cleanup(self, resume, parts, fhs):
         """Best-effort teardown after a FAILED run (the primary exception
         is already propagating; nothing here may mask it): the writer
-        thread + deflate pool, open output handles, and the progress bar."""
+        thread + deflate pool, open output handles, and the progress bar.
+        A --resume manifest and completed part files stay on disk: the
+        run remains resumable."""
         if self._pbar is not None:
             try:
                 self._pbar.close()
@@ -1370,11 +1578,18 @@ class NativeRunner:
                 self._writer.close()
             except BaseException:
                 pass
-        if fhs is not None:
-            try:
+        try:
+            if resume is not None:
+                resume.close_handles()
+            elif parts is not None:
+                # in-flight per-chunk part handles; completed chunks'
+                # handles were already closed by the writer thread (close
+                # is idempotent)
+                parts.close_handles()
+            elif fhs is not None:
                 self.p._close_outputs(fhs)
-            except Exception:
-                pass
+        except Exception:
+            pass
 
     # ------------------------------------------------------------------
 
@@ -1422,3 +1637,469 @@ class NativeRunner:
         finally:
             if self._bucket_dispatcher is not None:
                 self._bucket_dispatcher.shutdown(wait=False, cancel_futures=True)
+
+
+def resolved_kernel(p):
+    """The kernel as this process runs it, for the --resume config keys:
+    "cuda" with the CUDA kernel that runs the precision mode under the
+    compute dtype and the build key of the kernel library (a rebuilt
+    tensor-core kernel sums in another order, so its logits differ in the
+    last bits), or "plain" (the CPU recurrence)."""
+    if p.kernel != "cuda":
+        return {"kernel": p.kernel, "kernel_mode": None, "kernel_build": None}
+    import torch
+
+    from ribodetector_tpu_torch.ops.build import kernel_library_key
+    from ribodetector_tpu_torch.ops.dispatch import kernel_mode
+
+    return {
+        "kernel": "cuda",
+        "kernel_mode": kernel_mode(p.precision_mode, getattr(torch, p.compute_dtype)),
+        "kernel_build": kernel_library_key(),
+    }
+
+
+def _atomic_json_dump(path, obj):
+    """Write obj as JSON via tmp+fsync+rename: the rename must never beat
+    the data to disk (shared by both resume-manifest writers)."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump(obj, fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+
+
+def _load_manifest(path, want_config, what="--resume manifest"):
+    """Load a completion manifest, refusing corrupt or mismatched-config
+    files with the same wording both resume flavors use. Returns the
+    parsed dict or None when the file does not exist."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as fh:
+            m = json.load(fh)
+    except ValueError as e:
+        raise RuntimeError(
+            "{} {} is corrupt (interrupted while being written?); remove "
+            "it to start fresh.".format(what, path)
+        ) from e
+    got = m.get("config")
+    if got != want_config:
+        # name what differs: a manifest of the JAX package records its
+        # kernel as "pallas" or "scan", one of another kernel build records
+        # another build key
+        if isinstance(got, dict):
+            diff = sorted(k for k in set(got) | set(want_config)
+                          if got.get(k) != want_config.get(k))
+            detail = ", ".join(
+                f"{k}: {got.get(k)!r} here {want_config.get(k)!r}" for k in diff
+            )
+        else:
+            detail = "no config"
+        raise RuntimeError(
+            "{} {} was written by a different run configuration ({}); "
+            "remove it to start fresh.".format(what, path, detail)
+        )
+    return m
+
+
+def output_groups(p):
+    """{group: [final output paths]} for a Predictor's run (norrna always;
+    rrna when requested; unclf for paired -e both, quirk #5)."""
+    groups = {"norrna": list(p.output)}
+    if p.rrna is not None:
+        groups["rrna"] = list(p.rrna)
+    if p.is_paired and p.args.ensure == "both":
+        groups["unclf"] = [f + ".unclassified.gz" for f in p.output]
+    return groups
+
+
+class ResumeState:
+    """Byte-offset completion manifest enabling restartable streaming.
+
+    The reference loses ALL work on a crash mid-run. With --resume, writes go STRAIGHT to the final
+    output files and a manifest (`<output[0]>.progress.json`) atomically
+    records, after each completed chunk, the byte offset every output had
+    reached; an interrupted run reopens the outputs, truncates each to its
+    last completed offset (discarding the partial chunk's tail), and skips
+    the completed records. gz outputs are safe to cut at any write
+    boundary because the native writer emits one gzip member per payload
+    (io/gzfast.MemberGzipWriter; concatenated members are a valid gzip
+    file).
+
+    Offsets make resume IO-identical to a normal run plus one small
+    manifest write per chunk (a part-file layout would write every output
+    twice). Manifest updates run on the writer thread (ordered after the
+    chunk's writes + flush), so the pipeline keeps its full depth.
+    """
+
+    MANIFEST_SUFFIX = ".progress.json"
+
+    def __init__(self, p):
+        self.manifest_path = p.output[0] + self.MANIFEST_SUFFIX
+        self.chunks_done = 0
+        self._offsets = {}
+        self._fhs = None
+        self._wd = None  # cached weights digest (hashed once per run)
+
+    def _config_key(self, p):
+        # v3: byte-offset manifests over the final outputs.
+        # EVERY setting that affects labels or the output-file set is part
+        # of the key -- resuming with a changed --semantics / --precision /
+        # --kernel / --buckets / compute dtype / WEIGHTS would mix numeric
+        # regimes (or models) in one file, and a changed output list would
+        # truncate a file the interrupted run never tracked. The kernel is
+        # recorded RESOLVED (resolved_kernel), so resuming on a host that
+        # runs another kernel, or another build of it, is refused too.
+        # (gz_level is deliberately absent: it only changes compressed
+        # bytes, not content; so is the number of cards, which changes no
+        # label.)
+        return {
+            "v": 3,
+            "inputs": list(p.input),
+            "outputs": list(p.output),
+            "rrna": None if p.rrna is None else list(p.rrna),
+            "len": p.len,
+            "ensure": p.args.ensure,
+            "records_per_chunk": records_per_chunk(p),
+            "semantics": p.semantics,
+            "precision": p.precision_mode,
+            "compute_dtype": str(p.compute_dtype),
+            **resolved_kernel(p),
+            "buckets": getattr(p, "_resume_buckets", None),
+            "weights": self._weights_digest(p),
+        }
+
+    def _weights_digest(self, p):
+        """Identity of the loaded weights (path alone can alias different
+        checkpoints across runs). Hashed once per run (cached: the config
+        key is rebuilt per completed chunk on the writer thread)."""
+        if self._wd is None:
+            import hashlib
+
+            h = hashlib.sha1()
+            try:
+                with open(p.state_file, "rb") as fh:
+                    for blk in iter(lambda: fh.read(1 << 20), b""):
+                        h.update(blk)
+                self._wd = h.hexdigest()[:16]
+            except OSError:  # pragma: no cover - state_file was just loaded
+                self._wd = "unknown"
+        return self._wd
+
+    # -- lifecycle -----------------------------------------------------
+
+    def restore(self, p):
+        """Load the manifest (if any) and return (num_read, counts); the
+        runner then skips chunks_done * records_per_chunk records on every
+        input cursor (record-exact, so paired inputs stay aligned)."""
+        counts = {"norrna": 0, "rrna": 0, "unclf": 0}
+        num_read = 0
+        m = _load_manifest(self.manifest_path, self._config_key(p))
+        if m is not None:
+            self.chunks_done = int(m["chunks_done"])
+            num_read = int(m["records_done"])
+            counts.update(m["counts"])
+            self._offsets = dict(m.get("offsets", {}))
+            p.logger.info(
+                "Resuming after {} completed chunks ({} records)".format(
+                    self.chunks_done, num_read
+                )
+            )
+        return num_read, counts
+
+    def open_chunk(self, p, ci):
+        """The final output handles (opened once, truncated to the restored
+        offsets -- a partial chunk's tail from the interrupted run is
+        discarded). Every chunk shares them."""
+        if self._fhs is None:
+            from ribodetector_tpu_torch.io.gzfast import MemberGzipWriter
+
+            self._fhs = {}
+            for group, files in output_groups(p).items():
+                handles = []
+                for f in files:
+                    open(f, "ab").close()  # ensure it exists
+                    off = int(self._offsets.get(f, 0))
+                    if os.path.getsize(f) < off:
+                        # os.truncate would EXTEND a shorter file with NUL
+                        # bytes -- silent corruption. The output was
+                        # deleted/modified since the interrupted run.
+                        raise RuntimeError(
+                            "--resume: output {} is shorter than the "
+                            "manifest's recorded offset ({} < {}); it was "
+                            "modified or removed since the interrupted "
+                            "run. Remove the manifest and outputs to "
+                            "start fresh.".format(
+                                f, os.path.getsize(f), off
+                            )
+                        )
+                    os.truncate(f, off)
+                    raw = open(f, "ab")
+                    handles.append(
+                        MemberGzipWriter(raw, level=getattr(p, "gz_level", None))
+                        if f.endswith("gz")
+                        else raw
+                    )
+                self._fhs[group] = handles
+        return self._fhs
+
+    def complete_chunk(self, p, ci, fhs, num_read, counts):
+        """Record chunk completion: flush every output, capture its byte
+        offset, and atomically replace the manifest. Runs on the writer
+        thread, strictly after the chunk's writes (see _Writer.call)."""
+        offsets = {}
+        groups = output_groups(p)
+        for group, handles in fhs.items():
+            for f, fh in zip(groups[group], handles):
+                fh.flush()
+                offsets[f] = fh.tell()
+        _atomic_json_dump(
+            self.manifest_path,
+            {
+                "config": self._config_key(p),
+                "chunks_done": ci + 1,
+                "records_done": num_read,
+                "counts": counts,
+                "offsets": offsets,
+            },
+        )
+        self.chunks_done = ci + 1
+
+    def close_handles(self):
+        """Close the output handles WITHOUT touching the manifest (failed-
+        run cleanup: the interrupted run stays resumable)."""
+        if self._fhs is not None:
+            for group in self._fhs.values():
+                for fh in group:
+                    try:
+                        fh.close()
+                    except Exception:  # pragma: no cover - disk errors
+                        pass
+            self._fhs = None
+
+    def merge(self, p):
+        """Epilogue: close the outputs and drop the manifest (nothing to
+        concatenate in the offset design). Ensures outputs exist even for
+        an empty input."""
+        if self._fhs is None:
+            self.open_chunk(p, 0)
+        for group in self._fhs.values():
+            for fh in group:
+                fh.close()
+        self._fhs = None
+        if self.manifest_path and os.path.exists(self.manifest_path):
+            os.remove(self.manifest_path)
+
+
+class DistributedParts:
+    """Write layout for the coordinated multi-host mode (--coordinator).
+
+    Every host writes its owned logical chunks to per-chunk part files
+    (`<output>.parts/chunk_NNNNNN[.gz]`) in the SAME shared .parts
+    directories, so after all hosts pass the global barrier, host 0's
+    merge concatenates ALL hosts' parts in chunk order -- the round-robin
+    chunk assignment interleaves back into input order and the merged
+    outputs are byte-identical to a single-host run of the same command.
+    (Unlike single-host --resume, hosts cannot share one output file, so
+    the parts layout is load-bearing here.) The reference has no
+    multi-host counterpart; the hosts' counters are summed over the gloo
+    group (parallel/sharded.py merge_counts).
+
+    Restartability: every coordinated run ALWAYS records, in a
+    per-host manifest (`<output[0]>.parts.hostNNN.progress.json`, atomic
+    replace on the writer thread after the chunk's part files close), how
+    many of its own chunks completed plus the cumulative record/class
+    counts. When the group is relaunched with --resume after a host died
+    (the survivors fail their --barrier-timeout watchdog, so the
+    operational unit of restart is the whole group, same commands), each
+    host skips its already-completed chunks -- parse-only, no device work,
+    parts untouched on disk -- and only the dead host's unfinished chunk
+    is reprocessed (its partial part files are truncated on open). The
+    manifest is keyed to the full run configuration + weights digest like
+    single-host --resume; a mismatch refuses loudly.
+    """
+
+    def __init__(self, p):
+        self.host_id = int(getattr(p, "host_id", 0) or 0)
+        self.hosts = max(1, int(getattr(p, "hosts", 1) or 1))
+        self.manifest_path = "{}.parts.host{:03d}.progress.json".format(
+            p.output[0], self.host_id
+        )
+        self.chunks_done = 0  # completed OWN chunks (FIFO => a prefix)
+        self.records_done = 0
+        self.counts = {}
+        self._own_seen = 0
+        self._last_ci = -1
+        self._part_sizes = {}  # part path -> bytes, for completed chunks
+        self._open_handles = []  # every handle opened, for abort cleanup
+        self._wd = None
+
+    # -- config identity (same policy as ResumeState._config_key) -------
+
+    def _config_key(self, p):
+        key = ResumeState._config_key(self, p)
+        key["pv"] = 1  # parts-manifest layout version
+        key["hosts"] = p.hosts
+        key["host_id"] = self.host_id
+        return key
+
+    _weights_digest = ResumeState._weights_digest
+
+    # -- lifecycle -------------------------------------------------------
+
+    def restore(self, p):
+        """Load this host's manifest (--resume relaunch) and VERIFY every
+        completed chunk's part files still exist at their recorded sizes
+        (an intervening non-resume relaunch truncates parts on open, so a
+        stale manifest without this check would silently merge a partial
+        part). Returns (records_done, counts) to seed the run."""
+        counts = {"norrna": 0, "rrna": 0, "unclf": 0}
+        m = _load_manifest(self.manifest_path, self._config_key(p))
+        if m is not None:
+            self._part_sizes = dict(m.get("parts", {}))
+            for path, size in self._part_sizes.items():
+                try:
+                    got = os.path.getsize(path)
+                except OSError:
+                    got = -1
+                if got != int(size):
+                    raise RuntimeError(
+                        "--resume: part file {} is {} bytes but the "
+                        "manifest recorded {} -- it was truncated or "
+                        "removed since the run it belongs to (e.g. by a "
+                        "relaunch WITHOUT --resume). Remove the manifest "
+                        "and the .parts directories to start "
+                        "fresh.".format(path, got, size)
+                    )
+            self.chunks_done = int(m["chunks_done"])
+            self.records_done = int(m["records_done"])
+            counts.update(m["counts"])
+            p.logger.info(
+                "Coordinated resume: skipping {} completed chunks "
+                "({} records) on host {}".format(
+                    self.chunks_done, self.records_done, self.host_id
+                )
+            )
+        return self.records_done, counts
+
+    def skip_chunk(self, ci):
+        """True when this own chunk already completed in an earlier run
+        (completion is FIFO, so the first chunks_done own chunks are
+        exactly the completed set). Call once per OWN chunk, in order --
+        both halves of that contract are checked and raise (also under
+        python -O), so a future reordering of run_bucketed's early-continue
+        paths fails loudly instead of silently skipping the wrong chunks."""
+        if not host_chunk_assignment(ci, self.hosts, self.host_id):
+            raise RuntimeError(
+                f"skip_chunk called for chunk {ci} not owned by host "
+                f"{self.host_id}/{self.hosts}"
+            )
+        if ci <= self._last_ci:
+            raise RuntimeError(
+                f"skip_chunk out of order: chunk {ci} after {self._last_ci}"
+            )
+        self._last_ci = ci
+        self._own_seen += 1
+        return self._own_seen <= self.chunks_done
+
+    def complete_chunk(self, p, ci, num_read, counts):
+        """Record own-chunk completion. Runs on the writer thread strictly
+        after the chunk's part files were closed (ordered close_fh), so a
+        manifest entry always refers to fully-written parts -- whose byte
+        sizes are recorded for the restore-time integrity check."""
+        for files in output_groups(p).values():
+            for f in files:
+                path = self._part_path(f, ci)
+                try:
+                    self._part_sizes[path] = os.path.getsize(path)
+                except OSError:  # pragma: no cover - shared-fs races
+                    self._part_sizes[path] = 0
+        self.chunks_done += 1
+        _atomic_json_dump(
+            self.manifest_path,
+            {
+                "config": self._config_key(p),
+                "chunks_done": self.chunks_done,
+                "last_chunk": ci,
+                "records_done": num_read,
+                "counts": counts,
+                "parts": self._part_sizes,
+            },
+        )
+
+    @staticmethod
+    def _part_path(final_path, ci):
+        suffix = ".gz" if final_path.endswith("gz") else ""
+        return os.path.join(final_path + ".parts", f"chunk_{ci:06d}{suffix}")
+
+    def open_chunk(self, p, ci):
+        from ribodetector_tpu_torch.io.writer import open_for_write_bytes
+
+        fhs = {}
+        for group, files in output_groups(p).items():
+            handles = []
+            for f in files:
+                os.makedirs(f + ".parts", exist_ok=True)
+                fh = open_for_write_bytes(
+                    self._part_path(f, ci),
+                    gz_level=getattr(p, "gz_level", None),
+                )
+                self._open_handles.append(fh)
+                handles.append(fh)
+            fhs[group] = handles
+        return fhs
+
+    def close_handles(self):
+        """Failed-run cleanup: close every part handle this instance ever
+        opened (close is idempotent, so handles the writer thread already
+        closed are harmless). Completed parts and the manifest stay on
+        disk -- the run remains relaunchable with --resume."""
+        for fh in self._open_handles:
+            try:
+                fh.close()
+            except Exception:  # pragma: no cover - disk errors
+                pass
+        self._open_handles = []
+
+    def merge(self, p):
+        """Concatenate all hosts' part files into the final outputs (chunk
+        order) and clean up, including every host's completion manifest."""
+        import glob
+        import shutil
+
+        def chunk_index(name):
+            # numeric, NOT lexicographic: past chunk 999999 the %06d name
+            # grows a digit and string order would interleave wrongly
+            return int(name.split("_", 1)[1].split(".", 1)[0])
+
+        for files in output_groups(p).values():
+            for f in files:
+                parts_dir = f + ".parts"
+                if os.path.isdir(parts_dir):
+                    with open(f, "wb") as out:
+                        for name in sorted(os.listdir(parts_dir), key=chunk_index):
+                            with open(os.path.join(parts_dir, name), "rb") as part:
+                                shutil.copyfileobj(part, out, 8 << 20)
+                    shutil.rmtree(parts_dir)
+                elif not os.path.exists(f):
+                    # empty run: the output must still exist -- but NEVER
+                    # truncate a pre-existing file that has no parts to
+                    # rebuild it from (defense against misconfigured
+                    # calls). A gz output needs one empty member: a
+                    # zero-byte .gz is not a valid gzip stream.
+                    with open(f, "wb") as out:
+                        if f.endswith("gz"):
+                            out.write(compress_member(b""))
+        # every host is past the pre-merge barrier (manifests final): the
+        # run succeeded, so completion state must not leak. glob.escape:
+        # an output path containing [, ? or * must not be treated as a
+        # pattern (a missed match here would leak a stale manifest that a
+        # later --resume run could restore from)
+        for m in glob.glob(glob.escape(p.output[0]) + ".parts.host*.progress.json"):
+            try:
+                os.remove(m)
+            except OSError:  # pragma: no cover - shared-fs races
+                pass
+

@@ -13,15 +13,19 @@ parity with the reference:
 - per-batch '\n'.join writes, gzip level 5 (quirks #7, #11)
 - run-summary log messages (detect.py:210-247)
 
+- restartable streaming (--resume), and multi-host runs (--hosts,
+  --coordinator: per-host shards, or a gloo group whose host 0 merges the
+  hosts' parts; _finalize_distributed)
+- several cards on one host (-d a,b): parameters and classify steps per
+  card, each device batch split into row slices, one per card
+
 The run itself is the native streaming runner
 (runtime/native_pipeline.py), or the portable runner below (`run`,
 `run_with_chunks`: Python parsing and encoding, one [rows, len] token batch
 per device call) when the config sets runtime.native=false. The classify
 step runs on the card through the hand-written CUDA kernels
 (ops/lstm_cuda.py), or on the CPU through the plain recurrence when the
-caller asks for the CPU (cli.main_cpu). Paths of the JAX package that this
-package does not carry yet refuse with an explicit "not yet ported" error
-instead of being ignored.
+caller asks for the CPU (cli.main_cpu).
 """
 
 import os
@@ -59,32 +63,25 @@ def resolve_state_path(path):
     return os.path.normpath(path) if path else path
 
 
-def refuse_unported(config, args):
-    """Raise for every flag or config key whose path this package does not
-    carry, before any work starts (never silently ignore one)."""
-    checks = [
-        (getattr(args, "resume", False), "--resume"),
-        (int(getattr(args, "hosts", 1) or 1) > 1, "--hosts > 1"),
-        (getattr(args, "coordinator", None) is not None, "--coordinator"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is {NOT_PORTED}")
-
-
 class Predictor:
     """End-to-end rRNA detection over FASTQ/FASTA files.
 
     device: "cuda" (the default; the run fails when no card is visible) or
-    "cpu" (the plain recurrence, cli.main_cpu)."""
+    "cpu" (the plain recurrence, cli.main_cpu). replicas: on the CPU only,
+    run the several-card split over this many CPU replicas of the model
+    (tests hold the split against one replica with it; no CLI flag sets
+    it)."""
 
-    def __init__(self, config, args, device="cuda"):
+    def __init__(self, config, args, device="cuda", replicas=1):
         self.config = config
         self.args = args
         self.device_type = device
+        if replicas != 1 and device != "cpu":
+            raise ValueError("replicas is a CPU-only test setting; cards are "
+                             "chosen with -d a,b")
+        self.replicas = int(replicas)
         self.logger = config.get_logger("predict", 1, getattr(args, "log", None))
         self.chunk_size = getattr(args, "chunk_size", None)
-        refuse_unported(config, args)
         # classify-step memo (keyed by shape/emit/pad_gap/fmt): one
         # Predictor can serve many detect() runs without rebuilding steps;
         # the lock serializes memo misses
@@ -110,10 +107,14 @@ class Predictor:
         self.logger.info("Using high {} model".format(model_file_ext.upper()))
         self.logger.info("Log file: {}".format(getattr(self.args, "log", None)))
 
-    def _select_device(self):
-        """The torch device of this run, with -d/--deviceid parity
-        (reference detect.py:90-91): on the card -d N selects cuda:N and is
-        checked to have taken effect; on the CPU it has no effect."""
+    def _select_devices(self):
+        """The torch devices of this run, with -d/--deviceid parity
+        (reference detect.py:90-91): on the card -d N selects cuda:N and
+        -d a,b,... several cards, each checked to have taken effect; their
+        count must be a power of two, as the JAX package's data mesh
+        requires. Without -d the run keeps the current card (the JAX package
+        instead shards over every visible chip: cards on a GPU host are
+        often shared with other jobs). On the CPU -d has no effect."""
         import torch
 
         deviceid = getattr(self.args, "deviceid", None)
@@ -125,30 +126,40 @@ class Predictor:
         if self.device_type == "cpu":
             if ids is not None:
                 self.logger.warning("--deviceid has no effect on the cpu backend")
-            return torch.device("cpu")
+            return [torch.device("cpu")] * self.replicas
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is visible: ribodetector_tpu_torch runs its "
                 "classify step on the card (use main_cpu / "
                 "ribodetector_tpu_torch_cpu to run on the CPU)"
             )
-        if ids is not None and len(ids) > 1:
-            raise NotImplementedError(f"--deviceid with several GPUs is {NOT_PORTED}")
         try:
-            index = int(ids[0]) if ids else torch.cuda.current_device()
+            indices = [int(i) for i in ids] if ids else [torch.cuda.current_device()]
         except ValueError:
-            raise RuntimeError(f"--deviceid {deviceid!r} is not a CUDA device index")
-        n_dev = torch.cuda.device_count()
-        if not 0 <= index < n_dev:
+            raise RuntimeError(f"--deviceid {deviceid!r} is not a list of CUDA "
+                               "device indices")
+        n = len(indices)
+        if len(set(indices)) != n:
+            raise RuntimeError(f"--deviceid {deviceid} names a card twice")
+        if n & (n - 1):
             raise RuntimeError(
-                f"--deviceid {deviceid} did not take effect: {n_dev} CUDA "
-                f"device(s) visible"
+                f"--deviceid {deviceid} names {n} cards: the count must be a "
+                "power of two (each device batch splits into equal row slices)"
             )
-        device = torch.device("cuda", index)
-        torch.cuda.set_device(device)
-        if torch.empty(0, device=device).device != device:
-            raise RuntimeError(f"--deviceid {deviceid} did not take effect")
-        return device
+        n_dev = torch.cuda.device_count()
+        devices = []
+        for index in indices:
+            if not 0 <= index < n_dev:
+                raise RuntimeError(
+                    f"--deviceid {deviceid} did not take effect: {n_dev} CUDA "
+                    f"device(s) visible"
+                )
+            device = torch.device("cuda", index)
+            if torch.empty(0, device=device).device != device:
+                raise RuntimeError(f"--deviceid {deviceid} did not take effect")
+            devices.append(device)
+        torch.cuda.set_device(devices[0])
+        return devices
 
     def load_model(self):
         """Select the device, load weights, run the startup parity probe and
@@ -163,8 +174,12 @@ class Predictor:
         )
 
         self.get_state_file()
-        self.device = self._select_device()
-        self.params = load_params(self.state_file, self.device)
+        self.devices = self._select_devices()
+        self.device = self.devices[0]
+        # the weights on every card (554 KB each): each card's classify
+        # steps read their own copy
+        self._card_params = [load_params(self.state_file, d) for d in self.devices]
+        self.params = self._card_params[0]
         runtime_cfg = self.config.get("runtime", {})
         self.semantics = getattr(self.args, "semantics", None) or runtime_cfg.get(
             "semantics", "dense"
@@ -194,18 +209,19 @@ class Predictor:
                 f"{NOT_PORTED} (the CUDA kernels take hidden 128)"
             )
         self._maybe_parity_probe()
+        n_dev = len(self.devices)
         self.logger.info(
             "Model using {} ({} device{}) for read length {}{}{}{} loaded".format(
                 self.device.type,
-                1,
-                "",
+                n_dev,
+                "s" if n_dev != 1 else "",
                 colors.BOLD,
                 colors.OKCYAN,
                 self.len,
                 colors.ENDC,
             )
         )
-        self._infer = self._build_infer()
+        self._infer = self._build_infers()
 
     def _probe_marker(self):
         """Pass-marker path: the verdict is a property of (torch version,
@@ -292,9 +308,17 @@ class Predictor:
         except OSError as e:  # the marker only saves a later probe
             self.logger.warning("could not write the parity marker: %s", e)
 
+    def _build_infers(self, packed_max_len=None, emit="logits", pad_gap=0,
+                      fmt="b5"):
+        """One classify step per card of the run (_build_infer), in the
+        order of self.devices."""
+        return tuple(self._build_infer(packed_max_len, emit, pad_gap, fmt, card)
+                     for card in range(len(self.devices)))
+
     def _build_infer(self, packed_max_len=None, emit="logits", pad_gap=0,
-                     fmt="b5"):
-        """Classify step (eager torch on the run's device).
+                     fmt="b5", card=0):
+        """Classify step (eager torch on card `card` of the run's devices,
+        with that card's copy of the weights).
 
         packed_max_len=None: infer(tokens [B,T] uint8, lengths) -- the
         portable runner. packed_max_len=T: infer(ptokens [B,(T+2)//3] uint8
@@ -318,9 +342,9 @@ class Predictor:
         the full [B, len] dense semantics by starting the backward carry at
         zero_prefix_state(params, pad_gap).
 
-        Memoized per (packed_max_len, emit, pad_gap, fmt).
+        Memoized per (packed_max_len, emit, pad_gap, fmt, card).
         """
-        memo_key = (packed_max_len, emit, pad_gap, fmt)
+        memo_key = (packed_max_len, emit, pad_gap, fmt, card)
         cached = self._infer_cache.get(memo_key)
         if cached is not None:
             return cached
@@ -333,7 +357,7 @@ class Predictor:
             return infer
 
     def _build_infer_locked(self, memo_key):
-        packed_max_len, emit, pad_gap, fmt = memo_key
+        packed_max_len, emit, pad_gap, fmt, card = memo_key
         import torch
 
         from ribodetector_tpu_torch.models.bilstm import zero_prefix_state
@@ -345,7 +369,7 @@ class Predictor:
         from ribodetector_tpu_torch.runtime.ensure import paired_final_labels_torch
 
         unpack = unpack_b2_tokens if fmt == "b2" else unpack_b5_tokens
-        params = self.params
+        params = self._card_params[card]
         semantics = self.semantics
         kernel = self.kernel
         mode = self.precision_mode
@@ -403,13 +427,25 @@ class Predictor:
         return tokens, lengths
 
     def _classify(self, seqs, rows):
-        """Launch one classify step; returns the [rows, 2] logits as a tensor
-        on the run's device (the card computes while the host goes on)."""
+        """Launch one classify step per card, each over its contiguous row
+        slice; returns the [rows_k, 2] logits of each as a tensor on its
+        card (the cards compute while the host goes on; fetch_logits joins
+        them in row order)."""
         import torch
 
         tokens, lengths = self._encode_padded(seqs, rows)
-        return self._infer(torch.from_numpy(tokens).to(self.device),
-                           torch.from_numpy(lengths).to(self.device))
+        n = len(self.devices)
+        bounds = [rows * k // n for k in range(n + 1)]
+        return [
+            infer(torch.from_numpy(tokens[a:b]).to(dev),
+                  torch.from_numpy(lengths[a:b]).to(dev))
+            for infer, dev, a, b in zip(self._infer, self.devices, bounds, bounds[1:])
+        ]
+
+    @staticmethod
+    def fetch_logits(parts):
+        """_classify's per-card logits -> one [rows, 2] numpy array."""
+        return np.concatenate([t.cpu().numpy() for t in parts])
 
     # ------------------------------------------------------------- runs
 
@@ -439,11 +475,61 @@ class Predictor:
             raise RuntimeError(
                 "Ouput rRNA should have no more than two files and they should the same number with input files."
             )
+
+        # multi-host chunk sharding: each cooperating host takes its
+        # round-robin share of the chunk stream and writes per-host output
+        # shards. With --coordinator the hosts form one gloo process group
+        # (cli.py): counts are summed over it and host 0 concatenates the
+        # hosts' parts; without it the user concatenates <name>.host*.
+        self.distributed = getattr(self.args, "coordinator", None) is not None
+        self.hosts = max(1, int(getattr(self.args, "hosts", 1) or 1))
+        self.host_id = int(getattr(self.args, "host_id", 0) or 0)
+        if self.distributed and self.hosts < 2:
+            # the CLI enforces --num-hosts >= 2; programmatic callers must
+            # not reach _finalize_distributed with a single host (its merge
+            # would rebuild outputs from nonexistent parts)
+            raise RuntimeError("--coordinator requires hosts >= 2")
         if self.chunk_size is not None and int(self.chunk_size) < 1:
             raise RuntimeError(
                 f"--chunk_size must be >= 1, got {self.chunk_size} "
                 "(0 would silently process nothing)"
             )
+        if self.hosts > 1:
+            if not 0 <= self.host_id < self.hosts:
+                raise RuntimeError(
+                    f"--host-id {self.host_id} out of range [0, {self.hosts})"
+                )
+            if getattr(self.args, "resume", False) and not self.distributed:
+                # uncoordinated shards have no completion manifest; the
+                # coordinated parts mode records per-host progress and
+                # supports group relaunch with --resume
+                raise RuntimeError(
+                    "--resume with --hosts requires the coordinated mode "
+                    "(--coordinator): per-host completion manifests live "
+                    "in the shared parts layout"
+                )
+            if not self._use_native():
+                raise RuntimeError(
+                    "--hosts requires the native streaming path "
+                    "(g++-built parser; runtime.native=true)"
+                )
+            if self.distributed:
+                self.logger.info(
+                    "Coordinated host {}/{}: chunk parts on the shared "
+                    "filesystem; host 0 merges the final outputs".format(
+                        self.host_id, self.hosts
+                    )
+                )
+            else:
+                self.output = [self._host_shard_path(f) for f in self.output]
+                if self.rrna is not None:
+                    self.rrna = [self._host_shard_path(f) for f in self.rrna]
+                self.logger.info(
+                    "Host shard {}/{}: writing per-host outputs (concatenate "
+                    "<name>.host* shards when all hosts finish)".format(
+                        self.host_id, self.hosts
+                    )
+                )
 
         self.is_paired = num_inputs == 2
         # native gz output compression level (libdeflate; default 3 =
@@ -479,12 +565,29 @@ class Predictor:
                 from ribodetector_tpu_torch.runtime.native_pipeline import NativeRunner
 
                 NativeRunner(self).run()
-            elif self.chunk_size is None:
-                self.run()
             else:
-                self.run_with_chunks()
+                if getattr(self.args, "resume", False):
+                    self.logger.warning(
+                        "--resume is only supported on the native streaming "
+                        "path; running without it."
+                    )
+                if self.chunk_size is None:
+                    self.run()
+                else:
+                    self.run_with_chunks()
+        if self.distributed:
+            self._finalize_distributed()
         if self.timer.enabled:
             self.logger.info(self.timer.summary())
+
+    def _host_shard_path(self, f):
+        """Per-host output shard name. gz outputs keep their gz suffix so
+        compression stays on and `cat name.host*.gz > name.gz` is a valid
+        multi-member gzip file; plain shards concatenate the same way."""
+        k = f"host{self.host_id:03d}"
+        if f.endswith("gz"):
+            return f[: -len("gz")] + k + ".gz"
+        return f + "." + k
 
     def _use_native(self):
         """The native streaming runner unless the config sets
@@ -585,6 +688,94 @@ class Predictor:
         if "rrna" in fhs:
             self._write_bucket(fhs["rrna"][0], buckets.get(1, ()))
 
+    def _finalize_distributed(self):
+        """Multi-host epilogue: sum the per-host summary counters over the
+        gloo group, barrier so every host's chunk parts are closed and
+        visible, then host 0 concatenates ALL hosts' parts in chunk order
+        into the final outputs -- merged bytes identical to a single-host
+        run.
+
+        Failure semantics: the collectives block until EVERY host arrives,
+        so a host that died mid-run would hang the survivors forever (or,
+        where gloo sees the peer's socket close, fail with a transport
+        error). Both BARRIERS therefore run under a watchdog
+        (--barrier-timeout, default 1 h) and fail with one clear error;
+        completed per-chunk parts stay on disk, so the group can be
+        relaunched with --resume. Host 0's actual merge IO runs OUTSIDE the
+        watchdog -- a legitimately slow merge on a big shared filesystem
+        must never be aborted mid-copy (the other hosts wait for it at the
+        final barrier, whose timeout message says so)."""
+        import threading
+
+        import torch.distributed as dist
+
+        from ribodetector_tpu_torch.parallel.sharded import BarrierTimeout, merge_counts
+        from ribodetector_tpu_torch.runtime.native_pipeline import DistributedParts
+
+        timeout = getattr(self.args, "barrier_timeout", None)
+        if timeout is None:
+            timeout = 3600
+        # (an explicit 0 means fail-fast: Thread.join(0) returns immediately)
+
+        def bounded(fn, what):
+            box = {}
+
+            def run_body():
+                try:
+                    box["ret"] = fn()
+                except BaseException as e:  # surfaced on the main thread
+                    box["exc"] = e
+
+            t = threading.Thread(target=run_body, daemon=True)
+            t.start()
+            t.join(timeout)
+            if t.is_alive() or "exc" in box:
+                # a dead peer shows as a timeout, or as a gloo transport
+                # error once its sockets close: both get the same message
+                how = (
+                    "timed out after {}s".format(timeout)
+                    if t.is_alive()
+                    else "failed ({}: {})".format(
+                        type(box["exc"]).__name__, box["exc"]
+                    )
+                )
+                raise (BarrierTimeout if t.is_alive() else RuntimeError)(
+                    "Coordinated run: {} {} -- {} (this host processed its "
+                    "own chunks successfully; their part files remain in "
+                    "the <output>.parts/ directories). Restart the failed "
+                    "host's command to let the group complete, or raise "
+                    "--barrier-timeout.".format(what[0], how, what[1])
+                ) from box.get("exc")
+            return box.get("ret")
+
+        def pre_merge():
+            num_read, counts = getattr(
+                self, "_final", (0, {"norrna": 0, "rrna": 0, "unclf": 0})
+            )
+            merged = merge_counts({"num_read": num_read, **counts})
+            dist.barrier()  # every host's parts are written
+            return merged
+
+        merged = bounded(
+            pre_merge,
+            ("end-of-run barrier", "a cooperating host likely died mid-run"),
+        )
+        if self.host_id == 0:
+            # untimed: merge IO is legitimate work, not a liveness signal
+            DistributedParts(self).merge(self)
+            self.logger.info("Merged outputs from {} hosts:".format(self.hosts))
+            self._log_summary(merged.pop("num_read"), merged)
+
+        bounded(
+            dist.barrier,  # no host may exit while host 0 still reads part files
+            (
+                "final merge barrier",
+                "host 0's merge is still running or host 0 died -- check "
+                "host 0's log; if its merge legitimately needs longer, "
+                "raise --barrier-timeout on every host",
+            ),
+        )
+
     def _log_summary(self, num_seqs, counts):
         # the run's result, read by serve's run_job
         self._final = (num_seqs, dict(counts))
@@ -637,7 +828,7 @@ class Predictor:
     def _finalize_paired(self, r1_b, r2_b, logits_dev, nb):
         # the encoder packs R1 rows at [0, nb) and R2 rows at [nb, 2nb)
         # (remaining rows up to 2*batch_size are padding)
-        logits = logits_dev.cpu().numpy()
+        logits = self.fetch_logits(logits_dev)
         return r1_b, r2_b, logits[:nb], logits[nb : 2 * nb]
 
     def _single_batches(self, reads):
@@ -652,9 +843,8 @@ class Predictor:
         if pending is not None:
             yield self._finalize_single(*pending)
 
-    @staticmethod
-    def _finalize_single(batch, logits_dev):
-        return batch, logits_dev.cpu().numpy()[: len(batch)]
+    def _finalize_single(self, batch, logits_dev):
+        return batch, self.fetch_logits(logits_dev)[: len(batch)]
 
     # -- whole-file mode (detect.py:121-324)
 
