@@ -43,6 +43,23 @@ Phases, one JSON line each; any failure exits non-zero:
             each kernel's launch count in that run: exact once (the probe's
             reference arm), high on the probe and every batch (--profile
             logs the stage breakdown on stderr)
+  train     the training CLI on the card (train.__main__.main, hidden 128,
+            batch 200, 4 epochs fine-tuning the shipped weights) over
+            FASTA files of the port's synthetic_dataset (2 x 8192
+            training, 2 x 1024 validation reads, -l 100): the shipped
+            weights start at chance there, the train loss falls, best.npz
+            reaches val acc > 0.8, and the eval steps launch exact once an
+            epoch and no other kernel; the same from a random init
+            (init_params, seed 0) at -l 40 over 3 epochs; train steps/s
+            and reads/s, the card's kernels per step (a torch.profiler
+            trace) and eval reads/s (over the validation set in one
+            launch, and over 65536 reads in 16); one batch's gradients
+            on the card against the CPU (max-abs <= 1e-4 relative);
+            best.npz through detect on the card over 2 x 16384 pairs
+            (probe + high, against plain exact labels); and --hidden 64 (1
+            epoch of 2 x 2048 reads) through detect on the card: kernel
+            plain, no probe, no kernel launched, against the plain
+            recurrence called on the card
   serve     the JSONL job server (serve.main, --precision fast,
             --concurrency 2) over a 2 x 262144-read paired gz job, the same
             job again (memo reuse), a malformed line, a single-end job of
@@ -613,9 +630,11 @@ def phase_timing(params, quick, tc_plain, sass):
     return res
 
 
-def write_pairs(dirname, n, rng, prefix="in"):
+def write_pairs(dirname, n, rng, prefix="in", motif=None):
     """Paired gz FASTQ: most pairs clean 100 bp (the 2-bit lane), the rest
-    40-99 bp (the 64 bucket or the base-5 lane) or with N / lowercase."""
+    40-99 bp (the 64 bucket or the base-5 lane) or with N / lowercase.
+    With `motif`, it is also planted at a random place in one read of
+    three on each side (the train phase's models detect it)."""
     L = 100
     bases = np.frombuffer(b"ACGT", np.uint8)
     paths, seqs_all = [], []
@@ -629,6 +648,11 @@ def write_pairs(dirname, n, rng, prefix="in"):
         mat[withn, rng.integers(0, L, withn.sum())] = ord("N")
         lower = (kind >= 0.11) & (kind < 0.13)
         mat[lower, :10] = mat[lower, :10] + 32
+        if motif is not None:
+            m = np.frombuffer(motif.encode(), np.uint8)
+            rows = np.flatnonzero(rng.random(n) < 1 / 3)
+            at = rng.integers(0, lengths[rows] - len(m) + 1)
+            mat[rows[:, None], at[:, None] + np.arange(len(m))] = m
         seqs = [mat[i, : lengths[i]].tobytes() for i in range(n)]
         path = os.path.join(dirname, f"{prefix}_{side}.fq.gz")
         with open(path, "wb") as fh:
@@ -775,6 +799,294 @@ def phase_main(params, tmp, n=262144):
     check(launches["exact"] == 1 and launches["high"] >= 2,
           f"the main path's batches did not run on high: {launches}")
     return launches, inputs, got, wall
+
+
+TRAIN_READS = 8192  # per class: 2 x 8192 training reads
+VAL_READS = 1024  # per class
+EVAL_READS = 65536  # the eval rate's set: the validation set repeated, 16 launches
+TRAIN_EPOCHS = 4
+RANDOM_INIT_EPOCHS = 3  # the -l 40 run from a random init
+TRAIN_BATCH = 200  # the reference checkpoint's batch
+TRAIN_LR = 5e-3
+MOTIF = "GGAACCTTGGAACC"  # synthetic_dataset's planted motif
+# From a random init the motif task at -l 100 sits at ln 2 for many
+# epochs, in the JAX package's trainer as in the port's (the two step
+# alike until the loss starts to move; experiments/train_witness.py). So
+# the -l 100 run fine-tunes the shipped weights (--init), which start at
+# chance on the task (checked) and learn it in one epoch, and a run from
+# a random init at -l 40, where the task is learned in an epoch, checks
+# that training from init_params learns. The hidden-64 run trains from a
+# random init too.
+
+
+def write_fasta(path, tokens, lengths):
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "wb") as fh:
+        fh.write(b"".join(b">t%d\n%s\n" % (i, letters[tokens[i, :lengths[i]]].tobytes())
+                          for i in range(len(lengths))))
+
+
+def labeled_fasta(tmp, rng, max_len=100):
+    """FASTA files of the port's synthetic_dataset (label 1 iff the motif
+    was planted) at -l max_len: {name: path} for 2 x TRAIN_READS training and
+    2 x VAL_READS validation reads, and 2 x 2048 training reads for the
+    custom width; plus the training and validation sets' arrays (the
+    gradient check and the step timing)."""
+    from ribodetector_tpu_torch.train.trainer import synthetic_dataset
+
+    need = TRAIN_READS + VAL_READS
+    tok, lengths, labels = synthetic_dataset(rng, 2 * need + 2048, max_len=max_len)
+    by_label = {y: np.flatnonzero(labels == y) for y in (0, 1)}
+    check(min(len(v) for v in by_label.values()) >= need,
+          f"too few reads of one class: {[len(v) for v in by_label.values()]}")
+    paths = {}
+    for y, name in ((1, "rrna"), (0, "norrna")):
+        idx = by_label[y]
+        for split, sl in (("train", slice(0, TRAIN_READS)), ("val", slice(TRAIN_READS, need)),
+                          ("small", slice(0, 2048))):
+            paths[f"{split}_{name}"] = os.path.join(tmp, f"{split}_{name}_l{max_len}.fa")
+            write_fasta(paths[f"{split}_{name}"], tok[idx[sl]], lengths[idx[sl]])
+    sets = []
+    for sl in (slice(0, TRAIN_READS), slice(TRAIN_READS, need)):
+        idx = rng.permutation(np.concatenate([by_label[1][sl], by_label[0][sl]]))
+        sets.append((tok[idx], lengths[idx], labels[idx]))
+    return paths, sets[0], sets[1]
+
+
+def train_cli(paths, out, extra, max_len=100):
+    """train.__main__.main on the card -> (wall s, launches per kernel)."""
+    import torch
+
+    from ribodetector_tpu_torch.ops import lstm_cuda
+    from ribodetector_tpu_torch.train.__main__ import main as train_main
+
+    lstm_cuda.reset_launches()
+    t0 = time.perf_counter()
+    train_main(["--rrna", paths["rrna"], "--norrna", paths["norrna"], "-l", str(max_len),
+                "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR), "--out", out, *extra])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(lstm_cuda.LAUNCHES)
+
+
+def step_rates(params, data, val):
+    """Train steps/s at batch TRAIN_BATCH (20 steps after 2 warm-ups, on a
+    copy of params), the card's kernels in one step (a torch.profiler
+    trace), and eval reads/s over the validation set (2 x VAL_READS: one
+    launch of exact, latency-bound) and over it repeated to EVAL_READS
+    (a user's validation set: EVAL_READS / 4096 launches); host clock
+    around work that ends in a synchronize."""
+    import torch
+
+    from ribodetector_tpu_torch.models.bilstm import BiLSTM
+    from ribodetector_tpu_torch.train.trainer import (
+        TrainConfig, evaluate, make_eval_step, make_optimizer, make_train_step)
+
+    cfg = TrainConfig(learning_rate=TRAIN_LR)
+    model = BiLSTM(params)
+    step = make_train_step(cfg, make_optimizer(cfg, model.parameters()))
+    dev = params.w_hh_f.device
+    tok, lengths, labels = (torch.from_numpy(np.ascontiguousarray(x[:TRAIN_BATCH])).to(dev)
+                            for x in data)
+    labels = labels.long()
+    for _ in range(2):
+        step(model.params(), tok, lengths, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(model.params(), tok, lengths, labels)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 20
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(model.params(), tok, lengths, labels)
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(kernels > 0, "the profiler recorded no kernel on the card in a train step")
+    eval_step = make_eval_step(cfg)
+    rates = {"train_step_ms": 1e3 * step_s, "train_steps_per_s": 1 / step_s,
+             "train_reads_per_s": TRAIN_BATCH / step_s, "device_kernels_per_step": kernels}
+    big = tuple(np.tile(x, (EVAL_READS // len(val[2]),) + (1,) * (x.ndim - 1)) for x in val)
+    for name, reads in (("eval_reads_per_s_one_launch", val), ("eval_reads_per_s", big)):
+        evaluate(eval_step, model.params(), reads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(eval_step, model.params(), reads)
+        torch.cuda.synchronize()
+        rates[name] = len(reads[2]) / (time.perf_counter() - t0)
+    rates["eval_reads"] = len(big[2])
+    return rates
+
+
+def grad_gap(params, data):
+    """max over leaves of max-abs(card - CPU) / max(1, max|g|) of one
+    batch's gradients at hidden 128."""
+    import torch
+
+    from ribodetector_tpu_torch.models.bilstm import BiLSTMParams
+    from ribodetector_tpu_torch.train.trainer import _loss_fn
+
+    grads, losses = [], []
+    for dev in (params.w_hh_f.device, "cpu"):
+        leaves = BiLSTMParams(*(p.detach().to(dev).requires_grad_(True) for p in params))
+        batch = [torch.from_numpy(np.ascontiguousarray(x[:TRAIN_BATCH])).to(dev) for x in data]
+        loss, _ = _loss_fn(leaves, *batch, "dense", torch.float32)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append([p.grad.cpu() for p in leaves])
+    worst = {name: float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+             for name, a, b in zip(BiLSTMParams._fields, *grads)}
+    return max(worst.values()), worst, losses
+
+
+def epoch_losses(out, epochs):
+    from ribodetector_tpu_torch.models.bilstm import load_params_meta
+
+    return [load_params_meta(os.path.join(out, f"epoch{e:03d}.npz"))["metrics"]["train_loss"]
+            for e in range(epochs)]
+
+
+def detect_with(tmp, npz, tag, inputs):
+    """The detect CLI's engine on the card (cli._detect's three calls) with
+    `npz` as its weights -> (Predictor, wall s, launches, {label: files})."""
+    import torch
+
+    from ribodetector_tpu_torch.cli import build_arg_parser
+    from ribodetector_tpu_torch.config import DEFAULT_CONFIG, ConfigParser
+    from ribodetector_tpu_torch.ops import lstm_cuda
+    from ribodetector_tpu_torch.runtime import Predictor
+
+    with open(DEFAULT_CONFIG) as fh:
+        cfg = json.load(fh)
+    cfg["state_file"] = {"mcc": npz, "recall": npz}
+    out, files = outputs(tmp, tag, True, "both")
+    args = build_arg_parser().parse_args(["-l", "100", "-i", *inputs, *out, "-e", "both"])
+    lstm_cuda.reset_launches()
+    t0 = time.perf_counter()
+    pred = Predictor(ConfigParser(cfg), args, device="cuda")
+    pred.load_model()
+    pred.detect()
+    torch.cuda.synchronize()
+    return pred, time.perf_counter() - t0, dict(lstm_cuda.LAUNCHES), files
+
+
+def phase_train(tmp):
+    """Train on the card through the training CLI, check one step's
+    gradients against the CPU, and run what was trained through detect on
+    the card: at hidden 128 (exact in every eval step, high in detect) and
+    at hidden 64 (the plain recurrence, no kernel)."""
+    from ribodetector_tpu_torch.models.bilstm import load_params, load_params_meta
+    from ribodetector_tpu_torch.runtime.ensure import paired_final_labels
+    from ribodetector_tpu_torch.runtime.native_pipeline import resolved_kernel
+    from ribodetector_tpu_torch.train.trainer import TrainConfig, evaluate, make_eval_step
+
+    rng = np.random.default_rng(17)
+    t0 = time.perf_counter()
+    paths, data, val = labeled_fasta(tmp, rng)
+    gen_s = time.perf_counter() - t0
+
+    # (a) hidden 128 through the CLI, with a validation set, fine-tuning
+    # the shipped weights onto the motif task
+    init_acc = evaluate(make_eval_step(TrainConfig()), load_params(NPZ, "cuda"), val)["acc"]
+    out = os.path.join(tmp, "train128")
+    wall, launches = train_cli(
+        {"rrna": paths["train_rrna"], "norrna": paths["train_norrna"]}, out,
+        ["--val-rrna", paths["val_rrna"], "--val-norrna", paths["val_norrna"],
+         "--epochs", str(TRAIN_EPOCHS), "--init", NPZ])
+    losses = epoch_losses(out, TRAIN_EPOCHS)
+    best_npz = os.path.join(out, "best.npz")
+    best = load_params_meta(best_npz)
+    params = load_params(best_npz, "cuda")
+    rates = step_rates(params, data, val)
+    emit("train", run="hidden128", reads=2 * TRAIN_READS, val_reads=2 * VAL_READS,
+         epochs=TRAIN_EPOCHS, batch=TRAIN_BATCH, lr=TRAIN_LR, init="shipped weights",
+         val_acc_before=init_acc, wall_s=wall, data_gen_s=gen_s,
+         epoch_train_loss=losses, best_epoch=best["epoch"],
+         best_metrics=best["metrics"], launches=launches, **rates)
+    check(init_acc < 0.6, f"the shipped weights already reach val acc {init_acc}")
+    check(losses[-1] < losses[0], f"the train loss did not fall: {losses}")
+    check(best["metrics"]["acc"] > 0.8, f"best.npz val acc {best['metrics']['acc']} <= 0.8")
+    want_exact = TRAIN_EPOCHS * -(-2 * VAL_READS // 4096)  # eval batches of 4096
+    check(launches == {**dict.fromkeys(launches, 0), "exact": want_exact},
+          f"the eval steps launched {launches}, not exact {want_exact} times alone")
+
+    # (a') hidden 128 from a random init (the CLI's seed 0) at -l 40, where
+    # the task is learned within a few epochs
+    paths40, _, _ = labeled_fasta(tmp, np.random.default_rng(17), 40)
+    out40 = os.path.join(tmp, "train128_l40")
+    wall40, launches40 = train_cli(
+        {"rrna": paths40["train_rrna"], "norrna": paths40["train_norrna"]}, out40,
+        ["--val-rrna", paths40["val_rrna"], "--val-norrna", paths40["val_norrna"],
+         "--epochs", str(RANDOM_INIT_EPOCHS)], max_len=40)
+    losses40 = epoch_losses(out40, RANDOM_INIT_EPOCHS)
+    best40 = load_params_meta(os.path.join(out40, "best.npz"))
+    emit("train", run="hidden128_random_init_l40", reads=2 * TRAIN_READS,
+         val_reads=2 * VAL_READS, epochs=RANDOM_INIT_EPOCHS, batch=TRAIN_BATCH, lr=TRAIN_LR,
+         init="init_params, seed 0", wall_s=wall40, epoch_train_loss=losses40,
+         best_epoch=best40["epoch"], best_metrics=best40["metrics"], launches=launches40)
+    check(losses40[-1] < losses40[0], f"-l 40: the train loss did not fall: {losses40}")
+    check(best40["metrics"]["acc"] > 0.8,
+          f"-l 40 from a random init: best.npz val acc {best40['metrics']['acc']} <= 0.8")
+    check(launches40 == {**dict.fromkeys(launches40, 0), "exact": RANDOM_INIT_EPOCHS},
+          f"-l 40: the eval steps launched {launches40}, not exact once an epoch alone")
+
+    # (b) one batch's gradients, card against CPU
+    gap, per_leaf, batch_losses = grad_gap(params, data)
+    emit("train", run="gradients", batch=TRAIN_BATCH, worst_rel_gap=gap,
+         per_leaf=per_leaf, loss_card_cpu=batch_losses)
+    check(gap <= 1e-4, f"card and CPU gradients differ by {gap} (relative)")
+
+    # (c) best.npz through detect on the card (the main phase's arguments
+    # on 2 x 16384 pairs): probe + high
+    inputs, seqs = write_pairs(tmp, 16384, np.random.default_rng(23), prefix="trained",
+                               motif=MOTIF)
+    n = len(seqs[0])
+    logits = [side_logits(params, side, exact_logits) for side in seqs]
+    want = paired_final_labels(logits[0], logits[1], "both")
+    margin = margin_of(*logits)
+    pred, dwall, dl, files = detect_with(tmp, best_npz, "trained128", inputs)
+    got = read_partition(files, n)
+    bad = got != want
+    emit("train", run="detect128", pairs=n, wall_s=dwall, launches=dl,
+         kernel=resolved_kernel(pred)["kernel"], mismatches=int(bad.sum()),
+         mismatches_m5e_3=int(bad[margin >= 5e-3].sum()),
+         counts={str(k): int((got == k).sum()) for k in (0, 1, -1)})
+    check(dl["exact"] == 1 and dl["high"] >= 2,
+          f"detect with best.npz did not run the probe and high: {dl}")
+    check(not bad[margin >= 5e-3].any(),
+          "best.npz: partition disagrees with plain exact labels at margin >= 5e-3")
+
+    # (d) a custom width: --hidden 64, one epoch of 2 x 2048 reads, then
+    # detect on the card with the plain recurrence
+    out64 = os.path.join(tmp, "train64")
+    wall64, launches64 = train_cli(
+        {"rrna": paths["small_rrna"], "norrna": paths["small_norrna"]}, out64,
+        ["--hidden", "64", "--epochs", "1"])
+    npz64 = os.path.join(out64, "best.npz")
+    params64 = load_params(npz64, "cuda")
+    check(tuple(params64.w_hh_f.shape) == (64, 256), "--hidden 64 wrote another width")
+    logits = [side_logits(params64, side, exact_logits) for side in seqs]
+    want = paired_final_labels(logits[0], logits[1], "both")
+    margin = margin_of(*logits)
+    marker_dir = os.environ["RIBODETECTOR_TPU_TORCH_CACHE"]
+    markers = set(os.listdir(marker_dir)) if os.path.isdir(marker_dir) else set()
+    pred, dwall, dl, files = detect_with(tmp, npz64, "trained64", inputs)
+    got = read_partition(files, n)
+    bad = got != want
+    kernel = resolved_kernel(pred)["kernel"]
+    new_markers = (set(os.listdir(marker_dir)) if os.path.isdir(marker_dir) else set()) - markers
+    emit("train", run="hidden64", reads=2 * 2048, epochs=1, wall_s=wall64,
+         launches=launches64, detect_wall_s=dwall, detect_launches=dl, kernel=kernel,
+         pairs=n, mismatches=int(bad.sum()),
+         mismatches_m5e_3=int(bad[margin >= 5e-3].sum()),
+         counts={str(k): int((got == k).sum()) for k in (0, 1, -1)})
+    check(not any(launches64.values()) and not any(dl.values()),
+          f"a kernel ran at hidden 64: train {launches64}, detect {dl}")
+    check(kernel == "plain" and pred.kernel == "plain", f"hidden 64 resolved to {kernel}")
+    check(not new_markers, f"the parity probe ran at hidden 64: {new_markers}")
+    check(not bad[margin >= 5e-3].any(),
+          "hidden 64: partition disagrees with the plain recurrence at margin >= 5e-3")
+    emit("train", run="phase", wall_s=time.perf_counter() - t0)
 
 
 def routed_at_full_length(seqs_per_side):
@@ -1221,6 +1533,7 @@ def main(argv):
     with tempfile.TemporaryDirectory() as tmp:
         # each path's launches are counted from 0 just before it runs
         launches, main_inputs, main_got, main_wall = phase_main(params, tmp)
+        phase_train(tmp)
         launches["fast"] = phase_serve(params, tmp)["fast"]
         launches["fast_bf16"] = phase_config(params, tmp)["fast_bf16"]
         phase_trace(tmp, main_inputs, main_got, main_wall)

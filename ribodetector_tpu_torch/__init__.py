@@ -9,9 +9,11 @@ classifier, here run by kernels written by hand for NVIDIA Hopper
   io/        host-side streaming FASTQ/FASTA parse + gzip + writers
   encode/    vectorized byte->token encoding
   native/    C++ parser/encoder (fastx.cpp), built with g++ at first use
-  models/    BiLSTM parameters as torch tensors + the plain fp32 forward
+  models/    BiLSTM parameters as torch tensors + the plain fp32 forward,
+             init/save/load helpers, and the .pth/.npz/.onnx converter
   ops/       the CUDA BiLSTM kernels, their build, and device-side glue
   runtime/   streaming pipeline, ensure-mode logic, batching, buckets
+  train/     trainer (autograd over the plain forward) and its CLI
   cli.py     `ribodetector`-compatible command line (runs on the card)
 """
 

@@ -103,14 +103,46 @@ def open_seq_file(seq_file):
     return _open(seq_file), seq_type
 
 
+class _Records:
+    """Iterator over a sequence file's records that owns the open file: it
+    closes the file at the end of the records, on close(), on leaving a
+    ``with`` block, or when it is dropped -- also when iteration never
+    started (a generator's own ``with`` would only close a file it had
+    entered)."""
+
+    def __init__(self, fh, seq_type):
+        self._fh = fh
+        self._records = seq_parser(fh, seq_type)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._records)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self):
+        self._records.close()
+        self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        self.close()
+
+
 def parse_file(seq_file):
     """Stream all records of a sequence file (handles gzip + format
     sniffing). Validation and the open happen EAGERLY at call time -- a
-    bad extension or missing file errors here, not at the first next()."""
+    bad extension or missing file errors here, not at the first next().
+    The returned iterator closes the file when exhausted, closed or
+    dropped, started or not."""
     fh, seq_type = open_seq_file(seq_file)
-
-    def gen():
-        with fh:
-            yield from seq_parser(fh, seq_type)
-
-    return gen()
+    return _Records(fh, seq_type)

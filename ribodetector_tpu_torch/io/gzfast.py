@@ -39,6 +39,9 @@ import zlib
 
 _HDR = b"\x1f\x8b"
 _BODY_FEED = 256 << 10  # see the body branch in RawInflater.decompress
+# deflate's largest expansion: a 258-byte match in 2 bits, 1032 bytes out
+# per byte in (zlib's documented 1032:1 limit)
+_MAX_INFLATE = 1032
 _FHCRC, _FEXTRA, _FNAME, _FCOMMENT = 2, 4, 8, 16
 
 _lib = None
@@ -443,8 +446,12 @@ class RawInflater:
                     # whole member in hand (stash + mv): decide by its
                     # trailer's ISIZE before assembling anything
                     want_crc, isize = self._member_trailer_ints(mv)
-                    if isize > max_length:
-                        # can never fit one call's contract: stream it
+                    if isize > max_length or isize > _MAX_INFLATE * (rest - 8):
+                        # can never fit one call's contract, or more than
+                        # this body can inflate to (a corrupt trailer; flush()
+                        # passes an unbounded budget, and the fast path
+                        # allocates isize up front): stream it, and zlib
+                        # raises or tolerates as for any member
                         # (re-inject any stash ahead of mv first)
                         self._body_rest = None
                         if self._mbuf:

@@ -21,16 +21,25 @@ Two gather semantics, as in the JAX package:
 - "packed" (the cuDNN PackedSequence path): the forward state is taken at
   t=L-1 and the backward direction starts at t=L-1.
 
-``bilstm_logits`` is the plain recurrence: in fp32 the CPU classify path and
-the plain version of the exact CUDA kernel (ops/lstm_cuda.py); in bf16
+``bilstm_logits`` is the plain recurrence: in fp32 the CPU classify path,
+the plain version of the exact CUDA kernel (ops/lstm_cuda.py), the forward
+that training differentiates (train/trainer.py) and, on the card, the
+classify path of a custom hidden width; in bf16
 (compute_dtype=torch.bfloat16) the CPU path of the bf16 config, the
 counterpart of the JAX scan in bf16.
+
+The helpers (init_params, save_params, load_params_meta, param_count,
+reference_param_count, describe) and the npz format with its
+``_meta_json`` entry are the JAX package's, so either package loads what
+the other writes. ``BiLSTM`` holds the fields as ``nn.Parameter``s for
+training.
 """
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch import nn
 
 HIDDEN = 128
 GATES = 4 * HIDDEN
@@ -47,6 +56,90 @@ class BiLSTMParams(NamedTuple):
     b_b: torch.Tensor  # [512]
     w_out: torch.Tensor  # [256, 2]
     b_out: torch.Tensor  # [2]
+
+
+def init_params(generator, hidden=HIDDEN, device="cpu",
+                dtype=torch.float32) -> BiLSTMParams:
+    """Random init with the torch reference's bounds: LSTM tensors uniform
+    +-1/sqrt(hidden) (nn.LSTM), each direction's bias the sum of two such
+    draws (nn.LSTM's b_ih + b_hh), head weight AND bias uniform
+    +-1/sqrt(2*hidden) (nn.Linear's fan-in bound: the head's input is the
+    2*hidden bidirectional concat).
+
+    The draws come from `generator` (a CPU ``torch.Generator``), never the
+    global RNG, and are made on the CPU before the move to `device`, so a
+    seed gives the same weights on every device. They are not the JAX
+    package's values for the same seed: its ``init_params`` draws from a
+    ``jax.random.PRNGKey``. Start both packages from one npz to compare
+    them.
+    """
+    bound = 1.0 / np.sqrt(hidden)
+    hbound = 1.0 / np.sqrt(2 * hidden)
+    g = 4 * hidden
+
+    def u(shape, b=bound):
+        x = torch.rand(shape, generator=generator, dtype=torch.float64)
+        return ((2 * x - 1) * b).to(device=device, dtype=dtype)
+
+    return BiLSTMParams(
+        w_ih_f=u((ALPHABET, g)),
+        w_hh_f=u((hidden, g)),
+        b_f=u((g,)) + u((g,)),
+        w_ih_b=u((ALPHABET, g)),
+        w_hh_b=u((hidden, g)),
+        b_b=u((g,)) + u((g,)),
+        w_out=u((2 * hidden, NUM_CLASSES), hbound),
+        b_out=u((NUM_CLASSES,), hbound),
+    )
+
+
+def param_count(params: BiLSTMParams) -> int:
+    """Stored parameter count (136,706 for the reference arch: the torch
+    checkpoint's redundant b_ih/b_hh pairs are merged into one bias per
+    direction, see convert.py)."""
+    return sum(p.numel() for p in params)
+
+
+def reference_param_count(params: BiLSTMParams) -> int:
+    """Parameter count in the reference's torch layout (137,730), i.e.
+    counting both of each direction's bias vectors."""
+    return param_count(params) + int(params.b_f.shape[0]) + int(params.b_b.shape[0])
+
+
+def describe(params: BiLSTMParams) -> str:
+    """Human-readable summary, counterpart of the reference's
+    BaseModel.__str__; the same text as the JAX package's describe."""
+    lines = [f"  {name}: {tuple(p.shape)}" for name, p in params._asdict().items()]
+    return (
+        "BiLSTMParams(\n"
+        + "\n".join(lines)
+        + f"\n)\nTrainable parameters: {param_count(params)}"
+    )
+
+
+def save_params(path, params: BiLSTMParams, meta: dict | None = None):
+    """Write the npz artifact: one fp32 array per field, plus the metadata
+    as a uint8 ``_meta_json`` entry (the JAX package's format, so either
+    package loads what the other wrote). default=str degrades values JSON
+    cannot hold (paths, numpy scalars) to strings."""
+    arrays = {k: v.detach().cpu().numpy() for k, v in params._asdict().items()}
+    if meta:
+        import json
+
+        arrays["_meta_json"] = np.frombuffer(
+            json.dumps(meta, default=str).encode("utf-8"), dtype=np.uint8
+        )
+    np.savez(path, **arrays)
+
+
+def load_params_meta(path) -> dict:
+    """The metadata dict of an npz artifact ({} when it has none)."""
+    import json
+
+    with np.load(path) as z:
+        if "_meta_json" in z:
+            return json.loads(z["_meta_json"].tobytes().decode("utf-8"))
+    return {}
 
 
 def params_from_numpy(arrays, device="cpu") -> BiLSTMParams:
@@ -227,3 +320,23 @@ def bilstm_logits(params: BiLSTMParams, tokens, lengths=None, *,
     if cd == torch.float32:
         return head(params, last_out)
     return (last_out @ params.w_out.to(cd) + params.b_out.to(cd)).to(torch.float32)
+
+
+class BiLSTM(nn.Module):
+    """The eight fields of BiLSTMParams as ``nn.Parameter``s under their own
+    names (the trainer's autograd leaves); ``forward`` is the plain
+    recurrence, bilstm_logits."""
+
+    def __init__(self, params: BiLSTMParams):
+        super().__init__()
+        for name, value in params._asdict().items():
+            setattr(self, name, nn.Parameter(value.detach().clone()))
+
+    def params(self) -> BiLSTMParams:
+        """The Parameters themselves (not copies), as a BiLSTMParams."""
+        return BiLSTMParams(*(getattr(self, k) for k in BiLSTMParams._fields))
+
+    def forward(self, tokens, lengths=None, *, semantics="dense",
+                compute_dtype=torch.float32):
+        return bilstm_logits(self.params(), tokens, lengths, semantics=semantics,
+                             compute_dtype=compute_dtype)

@@ -2,15 +2,18 @@
 
 Counterpart of ``ribodetector_tpu/ops/dispatch.py``: the unpacking of the
 native parser's packed token rows on the device, and the kernel choice.
-The choice follows the tensor's device: the hand-written CUDA kernel for a
-CUDA tensor, the plain recurrence (models/bilstm.py) for a CPU tensor.
-``kernel`` (runtime config key runtime.kernel, CLI --kernel) is "auto",
-"cuda" or "plain"; an explicit value that contradicts the device raises.
+The choice follows the tensor's device and the model's hidden width: the
+hand-written CUDA kernel for a CUDA tensor at the reference width 128, the
+plain recurrence (models/bilstm.py) for a CPU tensor or for another width
+on the card (as the JAX package runs its scan for widths its Pallas kernel
+does not take). ``kernel`` (runtime config key runtime.kernel, CLI
+--kernel) is "auto", "cuda" or "plain"; an explicit value that contradicts
+the device or the width raises.
 """
 
 import torch
 
-from ribodetector_tpu_torch.models.bilstm import bilstm_logits
+from ribodetector_tpu_torch.models.bilstm import HIDDEN, bilstm_logits
 
 KERNELS = ("auto", "cuda", "plain")
 PRECISIONS = ("exact", "high", "fast")
@@ -50,18 +53,27 @@ def unpack_b2_tokens(packed, max_len):
     )
 
 
-def resolve_kernel(kernel, device):
-    """'auto' -> the kernel the device runs; an explicit choice must agree
-    with the device (no silent reroute between the card and the CPU)."""
+def resolve_kernel(kernel, device, hidden=HIDDEN):
+    """'auto' -> the kernel the device runs at this hidden width: "cuda" on
+    the card at the reference width, "plain" on the CPU and for any other
+    width on the card. An explicit choice must agree with both (no silent
+    reroute between the card and the CPU, and no plain recurrence on the
+    card where the CUDA kernel runs)."""
     on_card = torch.device(device).type == "cuda"
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel: {kernel} (choose from {KERNELS})")
     if kernel == "auto":
-        return "cuda" if on_card else "plain"
+        return "cuda" if on_card and hidden == HIDDEN else "plain"
     if kernel == "cuda" and not on_card:
         raise ValueError("kernel='cuda' needs the card; the CPU runs "
                          "kernel='plain'")
-    if kernel == "plain" and on_card:
+    if kernel == "cuda" and hidden != HIDDEN:
+        raise ValueError(
+            f"the CUDA kernels support the reference hidden width {HIDDEN} "
+            f"only (got {hidden}); kernel='auto' runs the plain recurrence "
+            "for custom-width checkpoints"
+        )
+    if kernel == "plain" and on_card and hidden == HIDDEN:
         raise ValueError("kernel='plain' on the card: the port runs the "
                          "hand-written CUDA kernel there (kernel='cuda')")
     return kernel
@@ -92,13 +104,14 @@ def classify_logits(params, tokens, lengths=None, *, semantics="dense",
                     bwd_init=None):
     """[B, T] tokens -> [B, 2] logits with the kernel the device runs.
 
-    On the card mode ("exact", "high" or "fast") and compute_dtype select
-    the CUDA kernel (kernel_mode). On the CPU the plain recurrence runs in
-    compute_dtype and mode does not change it, as the JAX package's CPU
-    scan ignores its precision mode. bwd_init is the length-bucketing
+    On the card at hidden 128, mode ("exact", "high" or "fast") and
+    compute_dtype select the CUDA kernel (kernel_mode). On the CPU, and on
+    the card at another width, the plain recurrence runs in compute_dtype
+    and mode does not change it, as the JAX package's scan ignores its
+    precision mode. bwd_init is the length-bucketing
     backward-carry init (models/bilstm.py zero_prefix_state).
     """
-    if resolve_kernel(kernel, tokens.device) == "cuda":
+    if resolve_kernel(kernel, tokens.device, params.w_hh_f.shape[0]) == "cuda":
         from ribodetector_tpu_torch.ops.lstm_cuda import bilstm_logits_cuda
 
         return bilstm_logits_cuda(params, tokens, lengths, semantics=semantics,

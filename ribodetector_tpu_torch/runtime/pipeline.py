@@ -190,7 +190,11 @@ class Predictor:
                 f"runtime.compute_dtype must be one of {COMPUTE_DTYPES}, got "
                 f"{self.compute_dtype!r}"
             )
-        self.kernel = resolve_kernel(runtime_cfg.get("kernel", "auto"), self.device)
+        hidden = self.params.w_hh_f.shape[0]
+        # a custom-width checkpoint runs the plain recurrence on the card
+        # (auto), as the JAX package runs its scan where Pallas cannot
+        self.kernel = resolve_kernel(runtime_cfg.get("kernel", "auto"),
+                                     self.device, hidden)
         # precision of the CUDA kernels: "exact" = fp32 recurrence, "high" =
         # 2-limb bf16 split accumulated in fp32 (the default, gated by the
         # startup parity probe), "fast" = one bf16 pass; bf16 compute runs
@@ -202,16 +206,10 @@ class Predictor:
             raise ValueError(f"unknown precision mode: {self.precision_mode}")
         if self.kernel == "cuda":  # refuse exact under bf16 before any work
             kernel_mode(self.precision_mode, getattr(torch, self.compute_dtype))
-        hidden = self.params.w_hh_f.shape[0]
-        if self.kernel == "cuda" and hidden != 128:
-            raise NotImplementedError(
-                f"a checkpoint of hidden width {hidden} on the card is "
-                f"{NOT_PORTED} (the CUDA kernels take hidden 128)"
-            )
         self._maybe_parity_probe()
         n_dev = len(self.devices)
         self.logger.info(
-            "Model using {} ({} device{}) for read length {}{}{}{} loaded".format(
+            "Model using {} ({} device{}) for read length {}{}{}{} loaded{}".format(
                 self.device.type,
                 n_dev,
                 "s" if n_dev != 1 else "",
@@ -219,6 +217,8 @@ class Predictor:
                 colors.OKCYAN,
                 self.len,
                 colors.ENDC,
+                f" (kernel plain: hidden {hidden}, the CUDA kernels take 128)"
+                if self.device.type == "cuda" and self.kernel == "plain" else "",
             )
         )
         self._infer = self._build_infers()

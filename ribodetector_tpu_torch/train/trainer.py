@@ -1,0 +1,279 @@
+"""Trainer for the BiLSTM read classifier, on one device.
+
+Counterpart of ``ribodetector_tpu/train/trainer.py``. The JAX trainer
+differentiates its ``lax.scan`` recurrence; this one trains through autograd
+over the port's plain recurrence (models/bilstm.bilstm_logits), never
+``torch.nn.LSTM`` or cuDNN: no kernel of the port has a backward pass, as
+no Pallas kernel of the JAX package has one. The eval step runs the
+classify dispatch instead, which on the card at hidden 128 is the exact
+CUDA kernel (the same fp32 function as the training forward).
+
+Differences from the JAX trainer, by design:
+
+- an explicit ``device`` takes the place of the (dp, tp) mesh: training
+  runs on one device, and there is no parameter sharding;
+- the optimizer holds its own state and updates the parameters in place,
+  so a train step takes the parameters and a batch and returns the loss;
+- matmuls run in fp32 (torch's default matmul precision, no TF32), where
+  the JAX trainer asks for ``Precision.DEFAULT``, one bf16 pass on a TPU.
+
+Checkpoint metadata mirrors the reference's (.pth keys
+arch/epoch/batch_size/metrics), and the npz artifacts are the JAX
+package's format.
+"""
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ribodetector_tpu_torch.models.bilstm import (
+    BiLSTM,
+    BiLSTMParams,
+    bilstm_logits,
+    save_params,
+)
+from ribodetector_tpu_torch.train.loss import cross_entropy_loss
+from ribodetector_tpu_torch.train.metrics import confusion_counts
+
+
+@dataclass
+class TrainConfig:
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0
+    semantics: str = "dense"
+    compute_dtype: str = "float32"
+
+
+def make_optimizer(cfg: TrainConfig, params):
+    """Adam over `params` (an iterable of leaf tensors), or AdamW with
+    cfg.weight_decay when the decay is non-zero (optax.adam / optax.adamw;
+    torch's AdamW default decay of 1e-2 is never used)."""
+    params = list(params)
+    if cfg.weight_decay:
+        return torch.optim.AdamW(params, lr=cfg.learning_rate,
+                                 weight_decay=cfg.weight_decay)
+    return torch.optim.Adam(params, lr=cfg.learning_rate)
+
+
+def _loss_fn(params, tokens, lengths, labels, semantics, compute_dtype):
+    logits = bilstm_logits(params, tokens, lengths, semantics=semantics,
+                           compute_dtype=compute_dtype)
+    return cross_entropy_loss(logits, labels), logits
+
+
+def make_train_step(cfg: TrainConfig, optimizer):
+    """step(params, tokens, lengths, labels) -> loss (a detached scalar on
+    the params' device): one forward and backward of the plain recurrence
+    in cfg.compute_dtype, then one optimizer step, which updates the leaf
+    tensors of `params` (the ones `optimizer` holds) in place."""
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+
+    def step(params, tokens, lengths, labels):
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = _loss_fn(params, tokens, lengths, labels, cfg.semantics,
+                           compute_dtype)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_eval_step(cfg: TrainConfig):
+    """step(params, tokens, lengths, labels) -> (per-example losses,
+    predictions), under torch.no_grad().
+
+    The logits come from ops.dispatch.classify_logits with kernel="auto":
+    on the card at hidden 128 that is the exact CUDA kernel (under bf16
+    compute, the one-pass bf16 kernel, as exact refuses bf16), and
+    elsewhere (the CPU, or another width on the card) the plain recurrence
+    in cfg.compute_dtype. Kept per-example so evaluation runs in bounded
+    mini-batches."""
+    from ribodetector_tpu_torch.ops.dispatch import classify_logits
+
+    compute_dtype = getattr(torch, cfg.compute_dtype)
+    mode = "exact" if compute_dtype == torch.float32 else "fast"
+
+    def step(params, tokens, lengths, labels):
+        with torch.no_grad():
+            logits = classify_logits(params, tokens, lengths,
+                                     semantics=cfg.semantics, kernel="auto",
+                                     mode=mode, compute_dtype=compute_dtype)
+            losses = F.cross_entropy(logits, labels.long(), reduction="none")
+            return losses, logits.argmax(-1)
+
+    return step
+
+
+def _on(device, tokens, lengths, labels):
+    return (torch.from_numpy(np.ascontiguousarray(tokens, np.uint8)).to(device),
+            torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(labels, np.int64)).to(device))
+
+
+def evaluate(eval_step, params, eval_data, batch_size=4096):
+    """Mini-batched evaluation: metrics over the WHOLE set (the confusion
+    counts come from the concatenated predictions, so F1/MCC are exact, not
+    batch-averaged). Each batch goes to the params' device; the tail batch
+    runs at its own size."""
+    tokens, lengths, labels = (np.asarray(x) for x in eval_data)
+    n = len(labels)
+    if n == 0 or batch_size < 1:
+        # fail up front with the contract, not after a full epoch of
+        # training (empty --val-* inputs)
+        raise ValueError(
+            f"evaluate() needs a non-empty eval set (got {n} rows) and "
+            f"batch_size >= 1 (got {batch_size})"
+        )
+    device = params.w_hh_f.device
+    eb = min(batch_size, n)
+    preds, loss_sum = [], 0.0
+    for start in range(0, n, eb):
+        sl = slice(start, min(start + eb, n))
+        losses, pred = eval_step(params, *_on(device, tokens[sl], lengths[sl],
+                                              labels[sl]))
+        preds.append(pred)
+        loss_sum += float(losses.sum())
+    # confusion counts ONCE; the four derived metrics come from the same
+    # (tp, fp, tn, fn)
+    tp, fp, tn, fn = (
+        float(x) for x in confusion_counts(torch.cat(preds).cpu(),
+                                           torch.from_numpy(labels))
+    )
+    eps = 1e-12  # same max(denom, eps) guard as train/metrics.py
+    rec = tp / max(tp + fn, eps)
+    prec = tp / max(tp + fp, eps)
+    denom = ((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn)) ** 0.5
+    return {
+        "loss": loss_sum / n,
+        "acc": (tp + tn) / n,
+        "recall": rec,
+        "precision": prec,
+        "F1": 2 * prec * rec / max(prec + rec, eps),
+        "mcc": (tp * tn - fp * fn) / max(denom, eps),
+    }
+
+
+def synthetic_dataset(rng, n, max_len=100, motif="GGAACCTTGGAACC"):
+    """Labeled toy reads: label 1 iff the motif was planted. The same
+    arrays as the JAX package's for the same numpy rng state."""
+    from ribodetector_tpu_torch.encode import encode_batch
+
+    motif = motif[: max(1, max_len // 2)]
+    # lmin must leave room to place the motif (rng.integers needs high > low)
+    lmin = min(max(len(motif) + 2, max_len // 2), max_len)
+    lmin = max(lmin, min(len(motif) + 1, max_len))
+    seqs, labels = [], []
+    bases = np.array(list("ACGT"))
+    for i in range(n):
+        L = int(rng.integers(lmin, max_len + 1))
+        s = "".join(rng.choice(bases, size=L))
+        y = int(rng.integers(0, 2))
+        if y:
+            pos = int(rng.integers(0, max(1, L - len(motif))))
+            s = s[:pos] + motif + s[pos + len(motif):]
+        seqs.append(s)
+        labels.append(y)
+    tokens, lengths = encode_batch(seqs, max_len)
+    return tokens, lengths, np.asarray(labels, np.int32)
+
+
+VALID_MONITORS = ("train_loss", "loss", "acc", "recall", "precision", "F1", "mcc")
+
+
+def fit(
+    params: BiLSTMParams,
+    data,
+    cfg: TrainConfig | None = None,
+    *,
+    epochs=1,
+    batch_size=128,
+    device=None,
+    eval_data=None,
+    log_fn=print,
+    checkpoint_dir=None,
+    monitor="mcc",
+):
+    """Minimal in-memory training loop. data = (tokens, lengths, labels).
+
+    Trains a copy of `params` on `device` (default: the device of params)
+    and returns the trained BiLSTMParams (detached). Each epoch takes the
+    JAX trainer's batches: the permutation np.random.default_rng(epoch) of
+    the rows, in whole batches (the last fractional batch is dropped).
+
+    checkpoint_dir: save an npz artifact per epoch (epoch{NNN}.npz; meta
+    carries arch/epoch/batch_size/metrics, mirroring the reference
+    checkpoint's keys) plus `best.npz` tracking the best `monitor` metric on
+    eval_data (or the train loss without one). Artifacts load with
+    models.load_params in either package and export to torch via
+    models.convert.
+    """
+    cfg = cfg or TrainConfig()
+    if int(batch_size) < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    if monitor not in VALID_MONITORS:
+        # fail BEFORE an epoch of work
+        raise ValueError(f"monitor={monitor!r} not one of {sorted(VALID_MONITORS)}")
+    device = torch.device(device) if device is not None else params.w_hh_f.device
+    model = BiLSTM(params).to(device)
+    leaves = model.params()
+    optimizer = make_optimizer(cfg, model.parameters())
+    train_step = make_train_step(cfg, optimizer)
+    eval_step = make_eval_step(cfg)
+
+    tokens, lengths, labels = data
+    n = len(labels)
+    if n == 0:
+        raise ValueError("fit() received an empty dataset")
+    if batch_size > n:
+        # a zero-step epoch would 'train' nothing yet still checkpoint
+        log_fn(f"batch_size {batch_size} > dataset size {n}; using {n}")
+        batch_size = n
+    # the whole training set on the device once; batches are gathered there
+    tokens_d, lengths_d, labels_d = _on(device, tokens, lengths, labels)
+    best = None
+    for epoch in range(epochs):
+        perm = torch.from_numpy(np.random.default_rng(epoch).permutation(n)).to(device)
+        losses = []
+        for start in range(0, n - batch_size + 1, batch_size):
+            idx = perm[start: start + batch_size]
+            losses.append(train_step(leaves, tokens_d[idx], lengths_d[idx],
+                                     labels_d[idx]))
+        # one host sync an epoch: the mean of the per-step losses
+        metrics = {"train_loss": float(torch.stack(losses).double().mean())}
+        msg = f"epoch {epoch}: loss {metrics['train_loss']:.4f}"
+        if eval_data is not None:
+            m = evaluate(eval_step, leaves, eval_data)
+            metrics.update(m)
+            msg += " " + " ".join(f"{k} {v:.4f}" for k, v in m.items())
+        log_fn(msg)
+        if checkpoint_dir is not None:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            hidden = leaves.w_hh_f.shape[0]
+            meta = {
+                "arch": f"BiLSTM 4x{hidden}x2 bidirectional",
+                "epoch": epoch,
+                "batch_size": batch_size,
+                "metrics": metrics,
+            }
+            save_params(
+                os.path.join(checkpoint_dir, f"epoch{epoch:03d}.npz"), leaves, meta
+            )
+            if monitor in metrics:
+                # loss-like monitors are minimized; everything else maximized
+                sign = -1.0 if "loss" in monitor else 1.0
+                score = sign * metrics[monitor]
+            else:
+                if eval_data is not None:
+                    raise ValueError(
+                        f"monitor={monitor!r} not in metrics {sorted(metrics)}"
+                    )
+                score = -metrics["train_loss"]
+            if best is None or score > best:
+                best = score
+                save_params(os.path.join(checkpoint_dir, "best.npz"), leaves, meta)
+    return BiLSTMParams(*(p.detach() for p in leaves))
+
