@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # the whole check (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch
     python3 chip_smoke.py --cards    # build + the main path, then at -d 0,1
-                                     # (needs two cards)
+                                     # (detect and serve) and training over
+                                     # every card (needs two cards)
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -43,7 +44,7 @@ Phases, one JSON line each; any failure exits non-zero:
             each kernel's launch count in that run: exact once (the probe's
             reference arm), high on the probe and every batch (--profile
             logs the stage breakdown on stderr)
-  train     the training CLI on the card (train.__main__.main, hidden 128,
+  train     the training CLI on one card (train.__main__._train, hidden 128,
             batch 200, 4 epochs fine-tuning the shipped weights) over
             FASTA files of the port's synthetic_dataset (2 x 8192
             training, 2 x 1024 validation reads, -l 100): the shipped
@@ -60,6 +61,19 @@ Phases, one JSON line each; any failure exits non-zero:
             epoch of 2 x 2048 reads) through detect on the card: kernel
             plain, no probe, no kernel launched, against the plain
             recurrence called on the card
+  train_dist  training over several devices, each rank a child process
+            running train.__main__.worker (what the CLI's main spawns per
+            card) with its steps timed and its launches counted: with two
+            cards or more, the worker over every card in an NCCL group at
+            --tp 1 and --tp 2, and the training CLI itself at --tp 2; with
+            one card, two ranks on it over gloo at dp = 2 and at tp = 2;
+            each run 1 epoch fine-tuning the shipped weights on the train
+            phase's files (-l 100, batch 200): the CLI's mesh lines, the
+            losses and best.npz against the train phase's one-process run
+            (losses 1e-4 relative, parameters within lr), exact launched
+            once an epoch on every rank and nothing else, best.npz through
+            detect (probe + high, against plain exact labels), and each
+            rank's step time, steps/s and train reads/s beside the total
   serve     the JSONL job server (serve.main, --precision fast,
             --concurrency 2) over a 2 x 262144-read paired gz job, the same
             job again (memo reuse), a malformed line, a single-end job of
@@ -86,8 +100,9 @@ Phases, one JSON line each; any failure exits non-zero:
             whose .host000/.host001 shards concatenate to the main phase's
             outputs); each host's wall and high launches
   cards     with two cards or more: the main path at -d 0,1, outputs equal
-            to the main phase's, high launched on each card; with one card
-            a line that says it was skipped
+            to the main phase's, high launched on each card, and serve
+            over the same pairs on one card and at -d 0,1, outputs equal;
+            with one card a line that says it was skipped
 
 Every path's outputs are compared decompressed, byte for byte. The
 subprocess phases run the CLI's main through CLI_CHILD, which prints the
@@ -854,16 +869,18 @@ def labeled_fasta(tmp, rng, max_len=100):
 
 
 def train_cli(paths, out, extra, max_len=100):
-    """train.__main__.main on the card -> (wall s, launches per kernel)."""
+    """The training CLI on the current card (main's path with one card
+    visible; with several, main spawns a worker per card, which the
+    train_dist phase drives) -> (wall s, launches per kernel)."""
     import torch
 
     from ribodetector_tpu_torch.ops import lstm_cuda
-    from ribodetector_tpu_torch.train.__main__ import main as train_main
+    from ribodetector_tpu_torch.train.__main__ import _train
 
     lstm_cuda.reset_launches()
     t0 = time.perf_counter()
-    train_main(["--rrna", paths["rrna"], "--norrna", paths["norrna"], "-l", str(max_len),
-                "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR), "--out", out, *extra])
+    _train(["--rrna", paths["rrna"], "--norrna", paths["norrna"], "-l", str(max_len),
+            "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR), "--out", out, *extra], "cuda")
     torch.cuda.synchronize()
     return time.perf_counter() - t0, dict(lstm_cuda.LAUNCHES)
 
@@ -974,7 +991,8 @@ def phase_train(tmp):
     """Train on the card through the training CLI, check one step's
     gradients against the CPU, and run what was trained through detect on
     the card: at hidden 128 (exact in every eval step, high in detect) and
-    at hidden 64 (the plain recurrence, no kernel)."""
+    at hidden 64 (the plain recurrence, no kernel). Returns what the
+    train_dist phase holds its runs against (dist_reference's keys)."""
     from ribodetector_tpu_torch.models.bilstm import load_params, load_params_meta
     from ribodetector_tpu_torch.runtime.ensure import paired_final_labels
     from ribodetector_tpu_torch.runtime.native_pipeline import resolved_kernel
@@ -1087,6 +1105,186 @@ def phase_train(tmp):
     check(not bad[margin >= 5e-3].any(),
           "hidden 64: partition disagrees with the plain recurrence at margin >= 5e-3")
     emit("train", run="phase", wall_s=time.perf_counter() - t0)
+    return {"paths": paths, "out": out, "inputs": inputs, "seqs": seqs,
+            "step_ms": rates["train_step_ms"]}
+
+
+DIST_EPOCHS = 1  # epochs of each train_dist run (epoch 0 of the train phase's run)
+# one rank of a multi-device training run: train.__main__.worker (what the
+# CLI's main spawns on each card), with each train step timed (synchronized
+# before and after) and the rank's kernel launches counted; its last stdout
+# line is a JSON object with those and the lines the CLI printed
+RANK_CHILD = """
+import contextlib, io, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from ribodetector_tpu_torch.ops import lstm_cuda
+from ribodetector_tpu_torch.train import trainer
+from ribodetector_tpu_torch.train.__main__ import worker
+a, rank = json.loads(sys.argv[2]), int(sys.argv[3])
+steps, make = [], trainer.make_train_step
+
+def timed(*args, **kw):
+    step = make(*args, **kw)
+
+    def run(*x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*x)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        return loss
+    return run
+
+trainer.make_train_step = timed
+printed = io.StringIO()
+t0 = time.perf_counter()
+with contextlib.redirect_stdout(printed):
+    worker(rank, a["world"], a["tp"], a["backend"], a["device"], a["argv"], a["init_method"])
+print(json.dumps({"rank": rank, "wall_s": time.perf_counter() - t0, "step_s": steps,
+                  "launches": dict(lstm_cuda.LAUNCHES),
+                  "stdout": printed.getvalue().splitlines()}), flush=True)
+"""
+
+
+def dist_argv(ref, out, tp):
+    paths = ref["paths"]
+    return ["--rrna", paths["train_rrna"], "--norrna", paths["train_norrna"],
+            "--val-rrna", paths["val_rrna"], "--val-norrna", paths["val_norrna"],
+            "-l", "100", "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+            "--epochs", str(DIST_EPOCHS), "--init", NPZ, "--out", out, "--tp", str(tp)]
+
+
+def dist_reference(tmp):
+    """Without the train phase (--cards): its files, and a one-process run
+    of the training CLI over them for DIST_EPOCHS on the current card."""
+    rng = np.random.default_rng(17)
+    paths, _, _ = labeled_fasta(tmp, rng)
+    out = os.path.join(tmp, "train128")
+    wall, _ = train_cli({"rrna": paths["train_rrna"], "norrna": paths["train_norrna"]}, out,
+                        ["--val-rrna", paths["val_rrna"], "--val-norrna", paths["val_norrna"],
+                         "--epochs", str(DIST_EPOCHS), "--init", NPZ])
+    inputs, seqs = write_pairs(tmp, 16384, np.random.default_rng(23), prefix="trained",
+                               motif=MOTIF)
+    emit("train_dist", run="one_process_reference", epochs=DIST_EPOCHS, wall_s=wall)
+    return {"paths": paths, "out": out, "inputs": inputs, "seqs": seqs, "step_ms": None}
+
+
+def check_dist_run(tag, out, ref, world, mesh, stdout):
+    """The run's printed lines, per-epoch losses and best.npz against the
+    one-process run (the CPU tests' tolerances), and best.npz through detect
+    on the card (probe + high) against plain exact labels."""
+    from ribodetector_tpu_torch.models.bilstm import load_params, load_params_meta
+    from ribodetector_tpu_torch.runtime.ensure import paired_final_labels
+
+    want_lines = [f"training on {world} devices, mesh {mesh}"]
+    if TRAIN_BATCH % mesh["dp"]:
+        want_lines.insert(0, f"--batch rounded to {TRAIN_BATCH - TRAIN_BATCH % mesh['dp']} "
+                             f"(divisible by dp={mesh['dp']})")
+    check(all(line in stdout for line in want_lines),
+          f"{tag}: the CLI did not print {want_lines}: {stdout}")
+    losses, want = epoch_losses(out, DIST_EPOCHS), epoch_losses(ref["out"], DIST_EPOCHS)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    best = load_params_meta(os.path.join(out, "best.npz"))
+    params = load_params(os.path.join(out, "best.npz"), "cuda")
+    one = load_params(os.path.join(ref["out"], f"epoch{best['epoch']:03d}.npz"), "cuda")
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(params, one))
+    n = len(ref["seqs"][0])
+    logits = [side_logits(params, side, exact_logits) for side in ref["seqs"]]
+    want_labels = paired_final_labels(logits[0], logits[1], "both")
+    margin = margin_of(*logits)
+    # no parity marker from an earlier run (a run whose best.npz is the same
+    # file would find one), so the startup probe runs
+    shutil.rmtree(os.environ["RIBODETECTOR_TPU_TORCH_CACHE"], ignore_errors=True)
+    _, dwall, dl, files = detect_with(os.path.dirname(out), os.path.join(out, "best.npz"),
+                                      f"dist_{tag}", ref["inputs"])
+    bad = read_partition(files, n) != want_labels
+    result = {"epoch_train_loss": losses, "one_process_loss": want, "loss_rel_gap": loss_gap,
+              "best_epoch": best["epoch"], "best_metrics": best["metrics"],
+              "param_max_abs_gap": param_gap, "detect_wall_s": dwall,
+              "detect_launches": dl, "detect_mismatches": int(bad.sum()),
+              "detect_mismatches_m5e_3": int(bad[margin >= 5e-3].sum())}
+    check(loss_gap <= 1e-4, f"{tag}: losses {losses} against one process's {want}")
+    check(param_gap <= TRAIN_LR, f"{tag}: best.npz differs from one process's by {param_gap}")
+    check(best["metrics"]["acc"] > 0.8, f"{tag}: best.npz val acc {best['metrics']['acc']}")
+    check(dl["exact"] == 1 and dl["high"] >= 2,
+          f"{tag}: detect with best.npz did not run the probe and high: {dl}")
+    check(not bad[margin >= 5e-3].any(),
+          f"{tag}: best.npz's partition disagrees with plain exact labels at margin >= 5e-3")
+    return result
+
+
+def dist_run(tmp, ref, tag, world, tp, backend, device, smi):
+    """One multi-device training run through the worker, one rank child each."""
+    from ribodetector_tpu_torch.parallel.mesh import make_dp_tp_mesh
+
+    mesh = make_dp_tp_mesh(tp=tp, devices=range(world)).shape
+    out = os.path.join(tmp, f"dist_{tag}", "ck")
+    spec = {"world": world, "tp": tp, "backend": backend, "device": device,
+            "argv": dist_argv(ref, out, tp), "init_method": f"tcp://127.0.0.1:{free_port()}"}
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(world):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_CHILD, REPO, json.dumps(spec), str(rank)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        CHILDREN.append(procs[-1])
+    reports = [finish(p, f"train_dist {tag} rank {r}", timeout=900)[0]
+               for r, p in enumerate(procs)]
+    wall = time.perf_counter() - t0
+    batch = TRAIN_BATCH - TRAIN_BATCH % mesh["dp"]
+    want_exact = DIST_EPOCHS * -(-2 * VAL_READS // 4096)  # eval batches of 4096
+    ranks = []
+    for r in reports:
+        step_s = float(np.median(r["step_s"][1:]))
+        ranks.append({"rank": r["rank"], "wall_s": r["wall_s"], "steps": len(r["step_s"]),
+                      "step_ms": 1e3 * step_s, "steps_per_s": 1 / step_s,
+                      "train_reads_per_s": batch // mesh["dp"] / step_s,
+                      "launches": r["launches"]})
+        check(r["launches"] == {**dict.fromkeys(r["launches"], 0), "exact": want_exact},
+              f"{tag} rank {r['rank']}: the eval steps launched {r['launches']}, "
+              f"not exact {want_exact} times alone")
+    slowest = max(x["step_ms"] for x in ranks) / 1e3
+    result = check_dist_run(tag, out, ref, world, mesh, reports[0]["stdout"])
+    emit("train_dist", run=tag, backend=backend, device=device, world=world, mesh=mesh,
+         card=smi, batch=batch, epochs=DIST_EPOCHS, wall_s=wall, ranks=ranks,
+         total_train_reads_per_s=batch / slowest, total_steps_per_s=1 / slowest,
+         one_process_step_ms=ref["step_ms"], **result)
+    check(not any(r["stdout"] for r in reports[1:]), f"{tag}: a rank other than 0 printed")
+    return out
+
+
+def phase_train_dist(tmp, ref, smi):
+    """Training over several devices. With two cards or more: the worker
+    over every card in an NCCL group at --tp 1 and --tp 2, then the training
+    CLI itself (main, which spawns the workers) at --tp 2. With one card:
+    the worker as two ranks on that card over gloo, at dp = 2 and tp = 2."""
+    import torch
+
+    from ribodetector_tpu_torch.models.bilstm import load_params
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        dist_run(tmp, ref, f"nccl_dp{n}", n, 1, "nccl", "cuda", smi)
+        want = dist_run(tmp, ref, "nccl_tp2", n, 2, "nccl", "cuda", smi)
+        out = os.path.join(tmp, "dist_cli", "ck")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ribodetector_tpu_torch.train",
+                               *dist_argv(ref, out, 2)], cwd=REPO, capture_output=True,
+                              text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the training CLI on {n} cards exited "
+                                    f"{proc.returncode}: {proc.stderr[-3000:]}")
+        mesh = {"dp": n // 2, "tp": 2} if n % 2 == 0 else {"dp": n, "tp": 1}
+        result = check_dist_run("cli_tp2", out, ref, n, mesh, proc.stdout.splitlines())
+        gap = max(float((a - b).abs().max()) for a, b in zip(
+            load_params(os.path.join(out, "best.npz")), load_params(os.path.join(want, "best.npz"))))
+        emit("train_dist", run="cli_tp2", cards=n, card=smi, wall_s=wall,
+             best_gap_to_worker_run=gap, **result)
+        check(gap <= TRAIN_LR, f"the CLI's best.npz differs from the worker run's by {gap}")
+    else:
+        dist_run(tmp, ref, "gloo_dp2_one_card", 2, 1, "gloo", "cuda:0", smi)
+        dist_run(tmp, ref, "gloo_tp2_one_card", 2, 2, "gloo", "cuda:0", smi)
 
 
 def routed_at_full_length(seqs_per_side):
@@ -1503,6 +1701,36 @@ def phase_cards(tmp, inputs):
     emit("cards", cards=2, wall_s=wall, launches=launches, card_launches=per_card)
     check(all(per_card.get(k, {}).get("high", 0) > 0 for k in (0, 1)),
           f"high was not launched on both cards: {per_card}")
+    serve_cards(tmp, inputs)
+
+
+def serve_cards(tmp, inputs):
+    """serve.main over the main phase's pairs on one card and at -d 0,1:
+    the same partitions, byte for byte, and high launched on both cards."""
+    import torch
+
+    from ribodetector_tpu_torch import serve
+    from ribodetector_tpu_torch.ops import lstm_cuda
+
+    files, walls = {}, {}
+    for tag, extra in (("serve_one_card", []), ("serve_cards", ["-d", "0,1"])):
+        out, files[tag] = outputs(tmp, tag, True, "both")
+        job = {"id": tag, "input": inputs, "output": out[1:out.index("-r")],
+               "rrna": out[out.index("-r") + 1:], "ensure": "both"}
+        lstm_cuda.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        serve.main(["-l", "100", *extra], stdin=[json.dumps(job) + "\n"], stdout=buf)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        resp = json.loads(buf.getvalue().splitlines()[0])
+        check(resp["status"] == "ok", f"serve {extra}: {resp}")
+    per_card = {k: dict(v) for k, v in lstm_cuda.CARD_LAUNCHES.items()}
+    same_outputs(files["serve_cards"], files["serve_one_card"], "serve -d 0,1")
+    emit("cards", run="serve", cards=2, wall_s=walls["serve_cards"],
+         one_card_wall_s=walls["serve_one_card"], card_launches=per_card)
+    check(all(per_card.get(k, {}).get("high", 0) > 0 for k in (0, 1)),
+          f"serve -d 0,1 did not launch high on both cards: {per_card}")
 
 
 def main(argv):
@@ -1524,6 +1752,8 @@ def main(argv):
         with tempfile.TemporaryDirectory() as tmp:
             _, main_inputs, _, _ = phase_main(params, tmp)
             phase_cards(tmp, main_inputs)
+            # the training runs' launch counts are each rank child's own
+            phase_train_dist(tmp, dist_reference(tmp), smi)
         return
     max_err, tc_plain = phase_kernels(params, quick)
     times = phase_timing(params, quick, tc_plain, sass)
@@ -1533,7 +1763,9 @@ def main(argv):
     with tempfile.TemporaryDirectory() as tmp:
         # each path's launches are counted from 0 just before it runs
         launches, main_inputs, main_got, main_wall = phase_main(params, tmp)
-        phase_train(tmp)
+        train_ref = phase_train(tmp)
+        # each rank child counts its own launches, from 0
+        phase_train_dist(tmp, train_ref, smi)
         launches["fast"] = phase_serve(params, tmp)["fast"]
         launches["fast_bf16"] = phase_config(params, tmp)["fast_bf16"]
         phase_trace(tmp, main_inputs, main_got, main_wall)

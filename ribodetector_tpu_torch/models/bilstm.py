@@ -204,13 +204,18 @@ def token_table(w_ih, b):
     return torch.cat([w_ih + b[None, :], b[None, :]], dim=0)
 
 
-def _lstm_cell(h, c, gates_x, w_hh):
-    """One i,f,g,o LSTM cell step; gates_x holds input projection + bias."""
-    gates = gates_x + h @ w_hh
+def lstm_update(gates, c):
+    """The i,f,g,o nonlinearity of one cell step: the [B, 4*hidden] gate
+    pre-activations and the cell state -> (h, c)."""
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
+
+
+def _lstm_cell(h, c, gates_x, w_hh):
+    """One i,f,g,o LSTM cell step; gates_x holds input projection + bias."""
+    return lstm_update(gates_x + h @ w_hh, c)
 
 
 def zero_prefix_state(params: BiLSTMParams, k: int, compute_dtype=torch.float32):
@@ -240,8 +245,8 @@ def zero_prefix_state(params: BiLSTMParams, k: int, compute_dtype=torch.float32)
     return h, c
 
 
-def bilstm_last_out(params, tokens, lengths, *, semantics, bwd_init, cell,
-                    dtype=torch.float32):
+def bilstm_last_out(params, tokens, lengths, *, semantics, bwd_init, cell=None,
+                    step=None, dtype=torch.float32):
     """The shared recurrence: [B, T] tokens -> last_out [B, 2*hidden].
 
     Both directions advance in one loop: step t runs the forward cell at
@@ -249,9 +254,15 @@ def bilstm_last_out(params, tokens, lengths, *, semantics, bwd_init, cell,
     captured at the per-read gather position with a masked select.
     cell(h, c, gates_x, d) -> (h, c) is the per-direction cell (d = 0
     forward, 1 backward), so the exact and the split-precision ("high")
-    forwards share everything but their arithmetic. dtype is the state's
-    type: the token tables, the carries and last_out are held in it.
+    forwards share everything but their arithmetic. In its place,
+    step((hf, cf, xf), (hb, cb, xb)) -> ((hf, cf), (hb, cb)) runs both
+    directions' cells at once (the tensor-parallel trainer exchanges their
+    gates in one collective a step). dtype is the state's type: the token
+    tables, the carries and last_out are held in it.
     """
+    if step is None:
+        def step(f, b):
+            return cell(*f, 0), cell(*b, 1)
     packed = check_contract(semantics, lengths, bwd_init)
     B, T = tokens.shape
     tokens = tokens.long()
@@ -272,8 +283,8 @@ def bilstm_last_out(params, tokens, lengths, *, semantics, bwd_init, cell,
     hf, cf, cap_f, cap_b = z, z, z, z
     for t in range(T):
         pos_b = T - 1 - t
-        hf, cf = cell(hf, cf, e[0][tokens[:, t]], 0)
-        hb_new, cb_new = cell(hb, cb, e[1][tokens[:, pos_b]], 1)
+        (hf, cf), (hb_new, cb_new) = step((hf, cf, e[0][tokens[:, t]]),
+                                          (hb, cb, e[1][tokens[:, pos_b]]))
         if packed:
             # padding steps (pos >= L) leave the backward carry untouched so
             # the backward direction starts exactly at the true last base
@@ -289,6 +300,14 @@ def bilstm_last_out(params, tokens, lengths, *, semantics, bwd_init, cell,
 def head(params, last_out):
     """Linear(256->2) in fp32."""
     return torch.addmm(params.b_out, last_out, params.w_out)
+
+
+def head_in(params, last_out, compute_dtype):
+    """The head in compute_dtype (fp32: head), as fp32 logits."""
+    cd = compute_dtype
+    if cd == torch.float32:
+        return head(params, last_out)
+    return (last_out @ params.w_out.to(cd) + params.b_out.to(cd)).to(torch.float32)
 
 
 def bilstm_logits(params: BiLSTMParams, tokens, lengths=None, *,
@@ -317,9 +336,7 @@ def bilstm_logits(params: BiLSTMParams, tokens, lengths=None, *,
 
     last_out = bilstm_last_out(params, tokens, lengths, semantics=semantics,
                                bwd_init=bwd_init, cell=cell, dtype=cd)
-    if cd == torch.float32:
-        return head(params, last_out)
-    return (last_out @ params.w_out.to(cd) + params.b_out.to(cd)).to(torch.float32)
+    return head_in(params, last_out, cd)
 
 
 class BiLSTM(nn.Module):

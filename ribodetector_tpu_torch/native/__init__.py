@@ -28,6 +28,19 @@ def _load():
         lib = ctypes.CDLL(path)
         i64 = ctypes.c_int64
         p = ctypes.POINTER
+        lib.rd_parse_fastq.restype = i64
+        lib.rd_parse_fastq.argtypes = [
+            ctypes.c_char_p, i64, ctypes.c_int32, i64, ctypes.c_int32,
+            p(ctypes.c_int64), p(ctypes.c_uint8), p(ctypes.c_int32),
+            p(ctypes.c_uint8), p(ctypes.c_int64),
+        ]
+        lib.rd_parse_fastq_b5.restype = i64
+        lib.rd_parse_fastq_b5.argtypes = [
+            ctypes.c_char_p, i64, ctypes.c_int32, i64, ctypes.c_int32,
+            ctypes.c_int32,
+            p(ctypes.c_int64), p(ctypes.c_uint8), p(ctypes.c_int32),
+            p(ctypes.c_uint8), p(ctypes.c_int64),
+        ]
         lib.rd_parse_fastq_b5b2.restype = i64
         lib.rd_parse_fastq_b5b2.argtypes = [
             ctypes.c_char_p, i64, ctypes.c_int32, i64, ctypes.c_int32,
@@ -68,6 +81,98 @@ def b2_packed_len(max_len: int) -> int:
     """Bytes per 2-bit-packed token row (4 tokens per byte; clean
     ACGTU-only full-length reads, see ops/dispatch.unpack_b2_tokens)."""
     return (max_len + 3) // 4
+
+
+def parse_fastq_chunk(data: bytes, max_len: int, at_eof=True):
+    """Parse+encode a decompressed FASTQ byte buffer in one native pass.
+
+    Returns (offsets [n,2] int64, tokens [n,max_len] uint8, lengths [n] int32,
+    clean [n] uint8, consumed int). `consumed` is the resume offset past the
+    last complete record (tail bytes belong to the next chunk). at_eof
+    finalizes an unterminated final record (default: whole-buffer use).
+    """
+    lib = _load()
+    n = len(data)
+    max_records = data.count(b"\n") // 4 + 2
+    offsets = np.empty((max_records, 2), np.int64)
+    tokens = np.empty((max_records, max_len), np.uint8)
+    lengths = np.empty(max_records, np.int32)
+    clean = np.empty(max_records, np.uint8)
+    consumed = np.zeros(1, np.int64)
+    nrec = lib.rd_parse_fastq(
+        data, n, 1 if at_eof else 0, max_records, max_len,
+        _ptr(offsets, ctypes.c_int64), _ptr(tokens, ctypes.c_uint8),
+        _ptr(lengths, ctypes.c_int32), _ptr(clean, ctypes.c_uint8),
+        _ptr(consumed, ctypes.c_int64),
+    )
+    return (
+        offsets[:nrec],
+        tokens[:nrec],
+        lengths[:nrec],
+        clean[:nrec],
+        int(consumed[0]),
+    )
+
+
+def parse_fastq_chunk_b5(data: bytes, max_len: int, at_eof=True):
+    """Like parse_fastq_chunk but tokens come back base-5 packed
+    ([n, (max_len+2)//3] uint8, 3 tokens/byte, pad trio byte = 124)."""
+    lib = _load()
+    n = len(data)
+    max_records = data.count(b"\n") // 4 + 2
+    pl = b5_packed_len(max_len)
+    offsets = np.empty((max_records, 2), np.int64)
+    packed = np.empty((max_records, pl), np.uint8)
+    lengths = np.empty(max_records, np.int32)
+    clean = np.empty(max_records, np.uint8)
+    consumed = np.zeros(1, np.int64)
+    nrec = lib.rd_parse_fastq_b5(
+        data, n, 1 if at_eof else 0, max_records, max_len, pl,
+        _ptr(offsets, ctypes.c_int64), _ptr(packed, ctypes.c_uint8),
+        _ptr(lengths, ctypes.c_int32), _ptr(clean, ctypes.c_uint8),
+        _ptr(consumed, ctypes.c_int64),
+    )
+    return (
+        offsets[:nrec],
+        packed[:nrec],
+        lengths[:nrec],
+        clean[:nrec],
+        int(consumed[0]),
+    )
+
+
+def parse_fastq_chunk_b5b2(data: bytes, max_len: int, at_eof=True):
+    """Like parse_fastq_chunk_b5 but additionally returns the 2-bit packed
+    rows and the per-record b2ok eligibility flag (clean ACGTU call at full
+    max_len length -- see fastx.cpp rd_parse_fastq_b5b2)."""
+    lib = _load()
+    n = len(data)
+    max_records = data.count(b"\n") // 4 + 2
+    pl = b5_packed_len(max_len)
+    pl2 = b2_packed_len(max_len)
+    offsets = np.empty((max_records, 2), np.int64)
+    packed = np.empty((max_records, pl), np.uint8)
+    packed2 = np.empty((max_records, pl2), np.uint8)
+    lengths = np.empty(max_records, np.int32)
+    clean = np.empty(max_records, np.uint8)
+    b2ok = np.empty(max_records, np.uint8)
+    consumed = np.zeros(1, np.int64)
+    nrec = lib.rd_parse_fastq_b5b2(
+        data, n, 1 if at_eof else 0, max_records, max_len, pl, pl2,
+        _ptr(offsets, ctypes.c_int64), _ptr(packed, ctypes.c_uint8),
+        _ptr(packed2, ctypes.c_uint8), _ptr(lengths, ctypes.c_int32),
+        _ptr(clean, ctypes.c_uint8), _ptr(b2ok, ctypes.c_uint8),
+        _ptr(consumed, ctypes.c_int64),
+    )
+    return (
+        offsets[:nrec],
+        packed[:nrec],
+        packed2[:nrec],
+        lengths[:nrec],
+        clean[:nrec],
+        b2ok[:nrec],
+        int(consumed[0]),
+    )
 
 
 def pack_b2(tokens: np.ndarray) -> np.ndarray:

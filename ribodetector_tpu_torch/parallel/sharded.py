@@ -1,6 +1,9 @@
-"""Multi-host streaming coordination.
+"""Sharded classify step and multi-host streaming coordination.
 
-Counterpart of ``ribodetector_tpu/parallel/sharded.py``: each host parses
+Counterpart of ``ribodetector_tpu/parallel/sharded.py``. The sharded
+classifier splits each batch's rows over several devices, the weights
+replicated on each (the split of runtime/native_pipeline.card_slices,
+which the detect runner uses for -d a,b). Each host parses
 its own round-robin slice of the input chunk stream (chunk ownership is
 deterministic, so no traffic assigns it), and the summary counters are
 summed over the hosts at the end. Outputs are written per host and
@@ -11,10 +14,49 @@ The hosts form a ``torch.distributed`` gloo group (cli.py sets it up from
 device tensor: gloo runs on the host CPU over TCP, and, unlike NCCL, it
 takes two ranks that share one card. Counters ride the collective as one
 int64 tensor, so they stay exact past 2**31 reads.
-
-The JAX package's sharded classifier has no counterpart here: several cards
-on one host split each device batch in runtime/native_pipeline.py.
 """
+
+from ribodetector_tpu_torch.parallel.mesh import Mesh
+
+
+def make_sharded_classifier(params, devices, *, semantics="dense",
+                            compute_dtype=None, kernel="auto", mode="exact"):
+    """(tokens [B, T], lengths [B]) -> logits [B, 2] on devices[0], each
+    device classifying its contiguous row slice through ops.dispatch with
+    its own copy of params.
+
+    `devices` is a list of torch devices or a Mesh (its devices in order).
+    B must be divisible by the device count, as the JAX package's data
+    mesh requires; the runtime's power-of-two batches satisfy this for any
+    power-of-two count. mode="exact" is the JAX classifier's default
+    Precision.HIGHEST."""
+    import torch
+
+    from ribodetector_tpu_torch.models.bilstm import BiLSTMParams
+    from ribodetector_tpu_torch.ops.dispatch import classify_logits
+    from ribodetector_tpu_torch.runtime.native_pipeline import card_slices
+
+    if isinstance(devices, Mesh):
+        devices = devices.devices.ravel()
+    devices = [torch.device(d) for d in devices]
+    copies = [BiLSTMParams(*(p.to(d) for p in params)) for d in devices]
+    compute_dtype = torch.float32 if compute_dtype is None else compute_dtype
+    n = len(devices)
+
+    def infer(tokens, lengths):
+        if tokens.shape[0] % n:
+            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
+                             f"split over {n} devices")
+        logits = []
+        for dev, p, (tok, ln) in zip(devices, copies,
+                                     card_slices(tokens, lengths, n, False)):
+            logits.append(classify_logits(
+                p, tok[0].to(dev), ln[0].to(dev), semantics=semantics,
+                kernel=kernel, mode=mode, compute_dtype=compute_dtype,
+            ).to(devices[0]))
+        return torch.cat(logits)
+
+    return infer
 
 
 class BarrierTimeout(RuntimeError):

@@ -52,8 +52,6 @@ except ImportError:  # pragma: no cover
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
-NOT_PORTED = "not yet ported in ribodetector_tpu_torch"
-
 
 def resolve_state_path(path):
     """Weight-file path resolution: relative paths live under the package

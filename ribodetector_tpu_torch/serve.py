@@ -31,7 +31,10 @@ the shipped config aliases both keys to one file, so the common case is a
 single model instance).
 
 ``main`` runs on the card and fails when no CUDA device is visible;
-``main_cpu`` pins the CPU (the plain recurrence).
+``main_cpu`` pins the CPU (the plain recurrence). -d/--deviceid names the
+card, or several cards that split each device batch, as the detect CLI's
+does; without it the server keeps the current card, where the JAX server
+shards over every visible chip.
 """
 
 import argparse
@@ -51,6 +54,10 @@ def build_arg_parser():
         description="Long-lived rRNA detection server (JSONL on stdin/stdout)",
     )
     ap.add_argument("-c", "--config", default=None, type=str)
+    ap.add_argument("-d", "--deviceid", default=None, type=str,
+                    help="index of the CUDA device to use, or a comma list of "
+                    "indices (a power-of-two count) to split each device "
+                    "batch over several cards (default: the current device)")
     ap.add_argument("-l", "--len", type=int, required=True,
                     help="read length every job is classified at (fixes the "
                     "classify steps' shapes)")
@@ -139,7 +146,8 @@ class Server:
             buckets=self.args.buckets,
             gz_level=self.args.gz_level,
             hosts=1, host_id=0, coordinator=None, num_hosts=None,
-            deviceid=None, config=self.args.config, barrier_timeout=None,
+            deviceid=getattr(self.args, "deviceid", None),
+            config=self.args.config, barrier_timeout=None,
         )
 
     def _resolved_state(self, key):

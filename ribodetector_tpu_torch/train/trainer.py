@@ -1,4 +1,4 @@
-"""Trainer for the BiLSTM read classifier, on one device.
+"""Trainer for the BiLSTM read classifier, on one device or a (dp, tp) grid.
 
 Counterpart of ``ribodetector_tpu/train/trainer.py``. The JAX trainer
 differentiates its ``lax.scan`` recurrence; this one trains through autograd
@@ -8,10 +8,26 @@ no Pallas kernel of the JAX package has one. The eval step runs the
 classify dispatch instead, which on the card at hidden 128 is the exact
 CUDA kernel (the same fp32 function as the training forward).
 
+On several devices the JAX trainer shards over a (dp, tp) mesh and XLA
+inserts the collectives. Here one process runs per device, placed on a
+parallel.mesh.Grid of the ranks of a ``torch.distributed`` group, and the
+collectives are explicit:
+
+- dp: each rank takes its contiguous rows of every batch (P("dp")), and
+  the gradients are averaged over the dp group after the backward pass,
+  so the update is that of the mean loss over the whole batch;
+- tp: the 512 gate columns of w_ih_*, w_hh_* and b_* are cut over the tp
+  group (param_shardings) and w_out/b_out are whole on every rank. Each
+  rank computes its [B, 512/tp] slice of gates_x + h @ w_hh, the slices
+  are gathered to [B, 512], and the cell and the head run in full on
+  every tp rank. Adam's state lives with each rank's slice;
+- collectives are all_reduce (a gather is an all_reduce of a zero-filled
+  buffer) and barrier only: gloo has no all_gather of CUDA tensors, and
+  two ranks that share one card need gloo.
+
 Differences from the JAX trainer, by design:
 
-- an explicit ``device`` takes the place of the (dp, tp) mesh: training
-  runs on one device, and there is no parameter sharding;
+- an explicit ``device`` and ``grid`` take the place of the mesh;
 - the optimizer holds its own state and updates the parameters in place,
   so a train step takes the parameters and a batch and returns the loss;
 - matmuls run in fp32 (torch's default matmul precision, no TF32), where
@@ -27,14 +43,19 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ribodetector_tpu_torch.models.bilstm import (
     BiLSTM,
     BiLSTMParams,
+    bilstm_last_out,
     bilstm_logits,
+    head_in,
+    lstm_update,
     save_params,
 )
+from ribodetector_tpu_torch.parallel.mesh import RowSplit, batch_sharded
 from ribodetector_tpu_torch.train.loss import cross_entropy_loss
 from ribodetector_tpu_torch.train.metrics import confusion_counts
 
@@ -58,24 +79,148 @@ def make_optimizer(cfg: TrainConfig, params):
     return torch.optim.Adam(params, lr=cfg.learning_rate)
 
 
-def _loss_fn(params, tokens, lengths, labels, semantics, compute_dtype):
-    logits = bilstm_logits(params, tokens, lengths, semantics=semantics,
-                           compute_dtype=compute_dtype)
+GATE_LEAVES = ("w_ih_f", "w_hh_f", "b_f", "w_ih_b", "w_hh_b", "b_b")
+
+
+def param_shardings(grid=None) -> BiLSTMParams:
+    """Tensor-parallel layout over the grid's tp axis: for each leaf the
+    axis cut into tp contiguous slices, or None where every rank holds
+    the whole leaf. The 512-wide gate dimension (the last axis of the six
+    gate leaves) is cut, so each tp rank owns 512/tp gate columns;
+    w_out/b_out are whole. Without a grid, or with tp = 1, nothing is cut."""
+    tp = grid is not None and grid.tp > 1
+    return BiLSTMParams(*(-1 if tp and k in GATE_LEAVES else None
+                          for k in BiLSTMParams._fields))
+
+
+def _columns(grid, width):
+    return RowSplit(grid.tp).rows(width, grid.tp_index)
+
+
+def shard_params(params, grid) -> BiLSTMParams:
+    """This rank's part of the full params (param_shardings)."""
+    return BiLSTMParams(*(p if axis is None else p[..., _columns(grid, p.shape[-1])]
+                          for p, axis in zip(params, param_shardings(grid))))
+
+
+def _gather_columns(x, grid):
+    """[..., c] on each tp rank -> [..., tp * c], slices in tp order: an
+    all_reduce of a zero-filled buffer (exact: every other term is 0)."""
+    c = x.shape[-1]
+    out = x.new_zeros(*x.shape[:-1], grid.tp * c)
+    out[..., _columns(grid, grid.tp * c)] = x
+    dist.all_reduce(out, group=grid.tp_group)
+    return out
+
+
+def gather_params(part, grid) -> BiLSTMParams:
+    """The full params (or gradients) from every tp rank's part: the
+    inverse of shard_params. Every rank of the tp group must call it."""
+    with torch.no_grad():
+        return BiLSTMParams(*(p if axis is None else _gather_columns(p, grid)
+                              for p, axis in zip(part, param_shardings(grid))))
+
+
+class _GatherColumns(torch.autograd.Function):
+    """Forward: gather the tp ranks' column slices. Backward: this rank's
+    own slice of the gradient. What follows the gather runs identically on
+    every tp rank, so each holds the whole gradient already; summing it
+    over the ranks (all_gather's backward) would scale it by tp."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid, ctx.width = grid, grid.tp * x.shape[-1]
+        return _gather_columns(x, grid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[..., _columns(ctx.grid, ctx.width)], None
+
+
+class _SumGradOverTP(torch.autograd.Function):
+    """Forward: identity. Backward: the gradient summed over the tp group.
+    h enters each rank's slice of h @ w_hh, so each rank's gradient of h
+    through the product covers its own gate columns only."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.grid.tp_group)
+        return grad, None
+
+
+def tp_logits(part, tokens, lengths=None, *, semantics="dense",
+              compute_dtype=torch.float32, grid):
+    """bilstm_logits with the gate columns cut over the grid's tp group:
+    `part` is this rank's shard_params. Each step each rank computes its
+    [B, 512/tp] slice of gates_x + h @ w_hh in both directions, the slices
+    are gathered to [B, 512] (one collective for the two directions), and
+    the cell (models/bilstm.lstm_update) and the head run in full on every
+    tp rank."""
+    cd = compute_dtype
+    w_hh = (part.w_hh_f.to(cd), part.w_hh_b.to(cd))
+    hidden, g = w_hh[0].shape
+
+    def step(f, b):
+        h = _SumGradOverTP.apply(torch.cat([f[0], b[0]], dim=-1), grid)
+        own = torch.cat([f[2] + h[:, :hidden] @ w_hh[0],
+                         b[2] + h[:, hidden:] @ w_hh[1]], dim=-1)
+        # [B, tp * 2g], rank by rank -> per direction [B, tp * g]
+        gates = _GatherColumns.apply(own, grid).unflatten(-1, (grid.tp, 2, g))
+        return (lstm_update(gates[:, :, 0].flatten(1), f[1]),
+                lstm_update(gates[:, :, 1].flatten(1), b[1]))
+
+    last_out = bilstm_last_out(part, tokens, lengths, semantics=semantics,
+                               bwd_init=None, step=step, dtype=cd)
+    return head_in(part, last_out, cd)
+
+
+def _loss_fn(params, tokens, lengths, labels, semantics, compute_dtype, grid=None):
+    if grid is not None and grid.tp > 1:
+        logits = tp_logits(params, tokens, lengths, semantics=semantics,
+                           compute_dtype=compute_dtype, grid=grid)
+    else:
+        logits = bilstm_logits(params, tokens, lengths, semantics=semantics,
+                               compute_dtype=compute_dtype)
     return cross_entropy_loss(logits, labels), logits
 
 
-def make_train_step(cfg: TrainConfig, optimizer):
+def _average_over_dp(leaves, grid):
+    """Each leaf's gradient averaged over the dp group, in one all_reduce."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=grid.dp_group)
+    flat /= grid.dp
+    offset = 0
+    for p, g in zip(leaves, grads):
+        p.grad = flat[offset: offset + g.numel()].view_as(g)
+        offset += g.numel()
+
+
+def make_train_step(cfg: TrainConfig, optimizer, grid=None):
     """step(params, tokens, lengths, labels) -> loss (a detached scalar on
     the params' device): one forward and backward of the plain recurrence
     in cfg.compute_dtype, then one optimizer step, which updates the leaf
-    tensors of `params` (the ones `optimizer` holds) in place."""
+    tensors of `params` (the ones `optimizer` holds) in place.
+
+    With a grid, `params` is this rank's shard_params and the batch its dp
+    rows: the forward runs tp_logits when tp > 1, the gradients are
+    averaged over the dp group before the update, and the loss returned
+    is the mean over this rank's rows."""
     compute_dtype = getattr(torch, cfg.compute_dtype)
 
     def step(params, tokens, lengths, labels):
         optimizer.zero_grad(set_to_none=True)
         loss, _ = _loss_fn(params, tokens, lengths, labels, cfg.semantics,
-                           compute_dtype)
+                           compute_dtype, grid)
         loss.backward()
+        if grid is not None and grid.dp > 1:
+            _average_over_dp(params, grid)
         optimizer.step()
         return loss.detach()
 
@@ -192,6 +337,7 @@ def fit(
     epochs=1,
     batch_size=128,
     device=None,
+    grid=None,
     eval_data=None,
     log_fn=print,
     checkpoint_dir=None,
@@ -203,6 +349,15 @@ def fit(
     and returns the trained BiLSTMParams (detached). Each epoch takes the
     JAX trainer's batches: the permutation np.random.default_rng(epoch) of
     the rows, in whole batches (the last fractional batch is dropped).
+
+    grid: this process's parallel.mesh.Grid (make_grid) in a group of one
+    process per device, every rank calling fit with the same arguments.
+    Each rank trains its shard_params on its dp rows of every batch
+    (batch_size must divide by dp); the logged train_loss is the mean over
+    the whole batches, as without a grid. Every rank evaluates the full
+    params (gathered over tp) and computes the same metrics; rank 0 alone
+    writes the checkpoints, and the others wait at a barrier. Every rank
+    returns the full params.
 
     checkpoint_dir: save an npz artifact per epoch (epoch{NNN}.npz; meta
     carries arch/epoch/batch_size/metrics, mirroring the reference
@@ -218,11 +373,14 @@ def fit(
         # fail BEFORE an epoch of work
         raise ValueError(f"monitor={monitor!r} not one of {sorted(VALID_MONITORS)}")
     device = torch.device(device) if device is not None else params.w_hh_f.device
-    model = BiLSTM(params).to(device)
+    model = BiLSTM(params if grid is None else shard_params(params, grid)).to(device)
     leaves = model.params()
     optimizer = make_optimizer(cfg, model.parameters())
-    train_step = make_train_step(cfg, optimizer)
+    train_step = make_train_step(cfg, optimizer, grid)
     eval_step = make_eval_step(cfg)
+
+    def whole():
+        return leaves if grid is None else gather_params(leaves, grid)
 
     tokens, lengths, labels = data
     n = len(labels)
@@ -232,6 +390,12 @@ def fit(
         # a zero-step epoch would 'train' nothing yet still checkpoint
         log_fn(f"batch_size {batch_size} > dataset size {n}; using {n}")
         batch_size = n
+    rows = None
+    if grid is not None:
+        if batch_size % grid.dp:
+            raise ValueError(f"batch_size {batch_size} does not split over dp={grid.dp}")
+        rows = batch_sharded(grid.mesh, "dp")
+    writer = grid is None or grid.rank == 0
     # the whole training set on the device once; batches are gathered there
     tokens_d, lengths_d, labels_d = _on(device, tokens, lengths, labels)
     best = None
@@ -240,28 +404,37 @@ def fit(
         losses = []
         for start in range(0, n - batch_size + 1, batch_size):
             idx = perm[start: start + batch_size]
+            if rows is not None:
+                idx = rows(idx, grid.dp_index)
             losses.append(train_step(leaves, tokens_d[idx], lengths_d[idx],
                                      labels_d[idx]))
+        losses = torch.stack(losses)
+        if grid is not None and grid.dp > 1:
+            # each step's loss over the whole batch: the mean of its dp parts
+            dist.all_reduce(losses, group=grid.dp_group)
+            losses /= grid.dp
         # one host sync an epoch: the mean of the per-step losses
-        metrics = {"train_loss": float(torch.stack(losses).double().mean())}
+        metrics = {"train_loss": float(losses.double().mean())}
         msg = f"epoch {epoch}: loss {metrics['train_loss']:.4f}"
+        full = whole()
         if eval_data is not None:
-            m = evaluate(eval_step, leaves, eval_data)
+            m = evaluate(eval_step, full, eval_data)
             metrics.update(m)
             msg += " " + " ".join(f"{k} {v:.4f}" for k, v in m.items())
         log_fn(msg)
         if checkpoint_dir is not None:
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            hidden = leaves.w_hh_f.shape[0]
+            hidden = full.w_hh_f.shape[0]
             meta = {
                 "arch": f"BiLSTM 4x{hidden}x2 bidirectional",
                 "epoch": epoch,
                 "batch_size": batch_size,
                 "metrics": metrics,
             }
-            save_params(
-                os.path.join(checkpoint_dir, f"epoch{epoch:03d}.npz"), leaves, meta
-            )
+            if writer:
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                save_params(
+                    os.path.join(checkpoint_dir, f"epoch{epoch:03d}.npz"), full, meta
+                )
             if monitor in metrics:
                 # loss-like monitors are minimized; everything else maximized
                 sign = -1.0 if "loss" in monitor else 1.0
@@ -274,6 +447,9 @@ def fit(
                 score = -metrics["train_loss"]
             if best is None or score > best:
                 best = score
-                save_params(os.path.join(checkpoint_dir, "best.npz"), leaves, meta)
-    return BiLSTMParams(*(p.detach() for p in leaves))
+                if writer:
+                    save_params(os.path.join(checkpoint_dir, "best.npz"), full, meta)
+            if grid is not None:
+                dist.barrier()
+    return BiLSTMParams(*(p.detach() for p in whole()))
 

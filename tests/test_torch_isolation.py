@@ -36,6 +36,8 @@ def test_importing_every_module_loads_no_jax():
     mods = _all_modules()
     assert "ribodetector_tpu_torch.runtime.native_pipeline" in mods
     assert "ribodetector_tpu_torch.ops.lstm_cuda" in mods
+    assert "ribodetector_tpu_torch.parallel.mesh" in mods
+    assert "ribodetector_tpu_torch.train.__main__" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

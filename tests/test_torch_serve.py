@@ -180,3 +180,43 @@ def test_serve_main_needs_the_card(jobs):
         pytest.skip("a CUDA card is visible: serve.main runs on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run(serve.main, ARGV, jobs[0])
+
+
+def test_serve_deviceid_reaches_the_predictor(tmp_path):
+    """-d/--deviceid goes into every job's Predictor arguments (on the CPU
+    it has no effect, as in the detect CLI)."""
+    rng = np.random.default_rng(10)
+    write_fastq(tmp_path / "in.fq", ["a", "b"], random_reads(rng, 2, 30, 50))
+    srv = _server([*ARGV, "-d", "0"])
+    job = {"input": [str(tmp_path / "in.fq")], "output": [str(tmp_path / "o.fq")]}
+    assert srv._job_args(job).deviceid == "0"
+    assert srv.run_job(job)["status"] == "ok"
+    assert srv._predictors["mcc"].args.deviceid == "0"
+    assert _server(ARGV)._job_args(job).deviceid is None
+
+
+@pytest.mark.parametrize("ids,match", [("0,1,2", "power of two"),
+                                       ("1,1", "names a card twice"),
+                                       ("0,x", "not a list of CUDA device")])
+def test_serve_bad_deviceid_fails_as_detect(monkeypatch, ids, match):
+    """A bad -d fails each job with the detect CLI's own error (the same
+    Predictor._select_devices check; a CPU-only host stands in for a
+    four-card one), and the server keeps serving."""
+    import torch
+
+    from ribodetector_tpu_torch.cli import build_arg_parser as detect_args
+    from ribodetector_tpu_torch.runtime import Predictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    args = detect_args().parse_args(["-l", "60", "-i", "x.fq", "-o", "y.fq", "-d", ids])
+    with pytest.raises(RuntimeError, match=match) as detect_err:
+        Predictor(ConfigParser.from_json(DEFAULT_CONFIG), args, device="cuda")._select_devices()
+    srv = serve.Server(serve.build_arg_parser().parse_args([*ARGV, "-d", ids]),
+                       ConfigParser.from_json(DEFAULT_CONFIG), device="cuda")
+    out = io.StringIO()
+    job = json.dumps({"id": 1, "input": ["x.fq"], "output": ["y.fq"]})
+    srv.serve([job, job], out)
+    resps = [json.loads(line) for line in out.getvalue().splitlines()]
+    assert [r["status"] for r in resps] == ["error", "error"]
+    assert resps[0]["error"] == f"RuntimeError: {detect_err.value}"

@@ -10,7 +10,12 @@
   replicas of the model (Predictor(..., replicas=2), a test-only argument)
   and gives the outputs of one replica, and of the JAX CLI, byte for byte,
   with both row slices classified: single-end, paired -e both, and the
-  portable runner.
+  portable runner;
+- twins of tests/test_sharding.py's mesh tests and of test_aux.py's
+  oversized-mesh check: the port's meshes over explicit device lists (CPU
+  replicas, or ranks) against the JAX package's over the 8 virtual CPU
+  devices, the row split of P("dp") against JAX's shards, and the sharded
+  classifier against one device.
 
 Byte identity with the JAX package rests on every read's JAX-scan margin
 being >= 1e-4 (test_torch_cli.py).
@@ -288,3 +293,95 @@ def test_native_runner_splits_each_device_call(ref_params_path):
         got.append(runner._device_call_with(infers, st, sl))
     assert got[0].shape == (1024,)
     assert np.array_equal(got[0], got[1])
+
+
+# ------------------------------------------------ meshes (parallel/mesh.py)
+
+CPUS = [torch.device("cpu")] * 8
+
+
+def test_dp_tp_mesh_shapes():
+    from ribodetector_tpu.parallel import make_dp_tp_mesh as jax_mesh
+    from ribodetector_tpu_torch.parallel import make_dp_tp_mesh
+
+    for n, tp, shape in ((8, 2, (4, 2)), (5, 2, (5, 1)), (8, 4, (2, 4)), (6, 4, (6, 1))):
+        mesh = make_dp_tp_mesh(n, tp=tp, devices=CPUS)
+        assert mesh.devices.shape == shape == jax_mesh(n, tp=tp).devices.shape
+        assert mesh.axis_names == ("dp", "tp") == jax_mesh(n, tp=tp).axis_names
+        assert mesh.shape == {"dp": shape[0], "tp": shape[1]}
+
+
+def test_rank_grid_places_rank_r_as_jax_places_device_r():
+    """make_dp_tp_mesh over ranks puts rank r at (r // tp, r % tp), where
+    JAX's reshape puts local device r."""
+    import jax
+
+    from ribodetector_tpu.parallel import make_dp_tp_mesh as jax_mesh
+    from ribodetector_tpu_torch.parallel import make_dp_tp_mesh
+
+    ids = {d: i for i, d in enumerate(jax.local_devices())}
+    for tp in (1, 2, 4):
+        got = make_dp_tp_mesh(8, tp=tp, devices=range(8)).devices
+        want = np.vectorize(ids.get)(jax_mesh(8, tp=tp).devices)
+        assert np.array_equal(got.astype(int), want)
+        assert all(got[r // tp, r % tp] == r for r in range(8))
+
+
+def test_oversized_mesh_is_refused():
+    """Twin of test_aux.py's make_data_mesh(999) check, with JAX's text."""
+    from ribodetector_tpu.parallel.mesh import make_data_mesh as jax_data_mesh
+    from ribodetector_tpu_torch.parallel import make_data_mesh, make_dp_tp_mesh
+
+    with pytest.raises(ValueError, match="device") as jax_err:
+        jax_data_mesh(999)
+    for make in (make_data_mesh, make_dp_tp_mesh):
+        with pytest.raises(ValueError) as err:
+            make(999, devices=CPUS)
+        assert str(err.value) == str(jax_err.value)
+    # the visible cards by default: none here
+    with pytest.raises(ValueError, match="only 0 local device"):
+        make_data_mesh(1)
+
+
+def test_batch_sharded_rows_are_jax_shards():
+    """batch_sharded(mesh, "dp") gives each dp index the rows that
+    P("dp") gives its devices; replicated gives every index the whole."""
+    import jax
+
+    from ribodetector_tpu.parallel import make_dp_tp_mesh as jax_mesh
+    from ribodetector_tpu.parallel.mesh import batch_sharded as jax_batch_sharded
+    from ribodetector_tpu_torch.parallel import batch_sharded, make_dp_tp_mesh, replicated
+
+    jmesh = jax_mesh(8, tp=2)
+    mesh = make_dp_tp_mesh(8, tp=2, devices=range(8))
+    x = np.arange(32) * 3
+    arr = jax.device_put(x, jax_batch_sharded(jmesh, "dp"))
+    row = {d: i for i, line in enumerate(jmesh.devices) for d in line}
+    split = batch_sharded(mesh, "dp")
+    for shard in arr.addressable_shards:
+        assert np.array_equal(split(x, row[shard.device]), np.asarray(shard.data))
+    assert np.array_equal(replicated(mesh)(x, 3), x)
+    with pytest.raises(ValueError, match="equal shards"):
+        split(x[:30], 0)
+
+
+def test_sharded_classifier_matches_single_device(ref_params_path, rng):
+    from ribodetector_tpu.models import load_params as jax_load
+    from ribodetector_tpu.parallel import make_data_mesh as jax_data_mesh
+    from ribodetector_tpu.parallel.sharded import make_sharded_classifier as jax_sharded
+    from ribodetector_tpu_torch.models import bilstm_logits as plain, load_params as port_load
+    from ribodetector_tpu_torch.parallel import make_data_mesh, make_sharded_classifier
+    from tests.conftest import random_reads
+
+    seqs = random_reads(rng, 64, lmin=20, lmax=50)
+    tokens, lengths = encode_batch(seqs, 50)
+    params = port_load(ref_params_path)
+    tok, ln = torch.from_numpy(tokens), torch.from_numpy(lengths)
+    for devices in (make_data_mesh(8, devices=CPUS), CPUS[:2]):
+        got = make_sharded_classifier(params, devices)(tok, ln).numpy()
+        np.testing.assert_array_equal(got, plain(params, tok).numpy())
+    want = np.asarray(jax_sharded(jax_load(ref_params_path), jax_data_mesh(8))(
+        jnp.asarray(tokens), jnp.asarray(lengths)))
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    with pytest.raises(ValueError, match="does not split"):
+        make_sharded_classifier(params, CPUS[:3])(tok, ln)

@@ -396,13 +396,18 @@ def test_train_cli_custom_hidden_width(tmp_path):
         "BiLSTM 4x32x2 bidirectional"
 
 
-def test_train_cli_refusals(tmp_path):
+def test_train_cli_refusals(tmp_path, capsys):
     rng = np.random.default_rng(2)
     mkfile(rng, tmp_path / "r.fa", 4, True)
     base = ["--rrna", str(tmp_path / "r.fa"), "--norrna", str(tmp_path / "r.fa"),
             "-l", "32", "--out", str(tmp_path / "ck")]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_main_cpu([*base, "--tp", "2"])
+    # --tp on one device is accepted and has no effect, as in the JAX CLI
+    # (which builds no mesh there): no mesh, no batch rounding
+    one = str(tmp_path / "one_device")
+    train_main_cpu([*base[:-1], one, "--tp", "2", "--epochs", "1", "--batch", "3"])
+    printed = capsys.readouterr().out
+    assert "mesh" not in printed and "rounded" not in printed
+    assert tb.load_params_meta(f"{one}/best.npz")["batch_size"] == 3
     with pytest.raises(SystemExit):
         train_main_cpu([*base, "--monitor", "bogus"])
     with pytest.raises(SystemExit):
