@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # the whole check (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch
     python3 chip_smoke.py --cards    # build + the main path, then at -d 0,1
-                                     # (detect and serve) and training over
-                                     # every card (needs two cards)
+                                     # (detect, serve, the portable runner
+                                     # and --precision exact) and training
+                                     # over every card (needs two cards)
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -19,11 +20,15 @@ Phases, one JSON line each; any failure exits non-zero:
             diagnostic, those of each kernel's step loop per cell
   kernels   each of the four CUDA kernels (exact, high, fast, fast_bf16)
             against its plain torch version on the card (real weights,
-            B = 16384+37, three settings): exact to max-abs <= 1e-4, the
-            three tensor-core kernels to TC_GATE (lstm_cuda.tc_gate:
-            mean-abs, 99.9th percentile, max-abs against the yardstick, no
-            flip above a margin), beside the yardstick (the plain version
-            summed in 16-wide k blocks) on the same reads, and once more at
+            six settings: T=100 dense and packed and T=64 with the 36-step
+            backward init of -l 100's 64 bucket, B = 16384+37; T=300 dense
+            with the 44-step init and packed, B = 4096+37, and T=192 with
+            the 108-step init, B = 1024+37, of -l 300's buckets): exact to
+            max-abs <= 1e-4, the three tensor-core kernels to TC_GATE
+            (lstm_cuda.tc_gate: mean-abs, 99.9th percentile, max-abs
+            against the yardstick, no flip above a margin), beside the
+            yardstick (the plain version summed in 16-wide k blocks) on
+            the same reads, and once more at
             the path's batch (262144 reads, T=100), where their plain
             versions are timed (one call each); the tensor-core kernels'
             row invariance (shuffled reads, and reads in a batch of another
@@ -33,7 +38,9 @@ Phases, one JSON line each; any failure exits non-zero:
             exact (information, not a gate)
   timing    kernel and plain times, the bound, and the cuDNN LSTM yardstick
             (fp32 for exact/high, bf16 for the fast kernels) at B=262144,
-            T=100; the bound is the larger of the bytes and the compute: for
+            T=100, and for exact and high at B=65536, T=300 (high's plain
+            time there from the kernels phase, at its batch); the bound is
+            the larger of the bytes and the compute: for
             the tensor-core kernels the larger of the products at their
             type's peak and the cell (its instructions at the CUDA cores'
             issue rate or its MUFU ones at theirs); for exact, whose fp32
@@ -44,6 +51,19 @@ Phases, one JSON line each; any failure exits non-zero:
             each kernel's launch count in that run: exact once (the probe's
             reference arm), high on the probe and every batch (--profile
             logs the stage breakdown on stderr)
+  configs   the JAX package's other documented configurations through the
+            detect CLI, in process, each run's launches counted from 0 and
+            its partition checked against plain exact labels on the card
+            under its ensure mode (no mismatch at a margin >= 5e-3), with a
+            fresh parity-marker cache: configuration 4, 2 x 65536 pairs of
+            40-320 bp reads at -l 300 (buckets 64, 128, 192, 256, 300 each
+            holding pairs, high launched on each; ~10% clean 300 bp pairs,
+            N calls, lowercase, truncated and all-N reads) as plain FASTA
+            (base-5 lane only) and as FASTQ.gz (the 2-bit lane); 2-3, the
+            main phase's pairs under -e rrna, norrna and none; 1, their
+            side 1 single-end at --chunk_size 256; and the main phase's
+            pairs at --precision exact (3.3x high's kernel time), with
+            its busy share from a --trace-dir rerun
   train     the training CLI on one card (train.__main__._train, hidden 128,
             batch 200, 4 epochs fine-tuning the shipped weights) over
             FASTA files of the port's synthetic_dataset (2 x 8192
@@ -100,11 +120,15 @@ Phases, one JSON line each; any failure exits non-zero:
             whose .host000/.host001 shards concatenate to the main phase's
             outputs); each host's wall and high launches
   cards     with two cards or more: the main path at -d 0,1, outputs equal
-            to the main phase's, high launched on each card, and serve
-            over the same pairs on one card and at -d 0,1, outputs equal;
-            with one card a line that says it was skipped
+            to the main phase's, high launched on each card; serve over the
+            same pairs on one card and at -d 0,1, outputs equal; the
+            portable runner (runtime.native=false) at -d 0,1, outputs equal
+            to the main phase's; and --precision exact (3.3x high's
+            kernel time) on one card and at -d 0,1, outputs equal, both
+            walls; with one card a line that says it was skipped
 
-Every path's outputs are compared decompressed, byte for byte. The
+Every path's outputs are compared decompressed, byte for byte. A "walls"
+line before the kernels line gives each phase's wall time. The
 subprocess phases run the CLI's main through CLI_CHILD, which prints the
 run's wall and kernel launches as a JSON line.
 
@@ -153,7 +177,7 @@ MUFU_PER_S = CUDA_CORE_INSTR_PER_S / 8
 CELLS_PER_THREAD_STEP = {"exact": 16, "high": 8, "fast": 16, "fast_bf16": 16}
 H = 128
 G = 4 * H
-LIB_CHUNK = 16384  # reads per cuDNN call of the library yardstick
+LIB_CHUNK = 16384  # reads per cuDNN call of the library yardstick at T = 100
 
 
 def emit(phase, **kw):
@@ -421,18 +445,23 @@ def gate_tc(params, mode, tok, lens, sem, bwd, got, setting):
 
 def zero_product(params, mode, tok, lens, sem, bwd, setting):
     """Bit for bit against the plain version with W_hh = 0, where the
-    product is exactly zero whatever order the tensor cores sum in."""
+    product is exactly zero whatever order the tensor cores sum in. The
+    plain version is taken in its blocked form (YARDSTICK): with W_hh = 0
+    the two are the same bit for bit (tests/test_torch_kernels.py
+    test_zero_product_weights_make_the_order_irrelevant), and the blocked
+    one makes 16x fewer launches (plain high's k-ascending sum: 3.2 s a
+    call at 4133 reads and T = 300)."""
     import torch
 
     from ribodetector_tpu_torch.ops.lstm_cuda import (
-        PLAIN,
+        YARDSTICK,
         bilstm_logits_cuda,
         zero_product_params,
     )
 
     p0 = zero_product_params(params)
     got = bilstm_logits_cuda(p0, tok, lens, semantics=sem, mode=mode, bwd_init=bwd)
-    ref = PLAIN[mode](p0, tok, lens, semantics=sem, bwd_init=bwd)
+    ref = YARDSTICK[mode](p0, tok, lens, semantics=sem, bwd_init=bwd)
     same = bool(torch.equal(got, ref))
     emit("kernels", kernel=mode, setting=setting, B=tok.shape[0],
          zero_product_bit_identical=same, max_abs=float((got - ref).abs().max()))
@@ -453,25 +482,39 @@ def phase_kernels(params, quick):
     dev = params.w_hh_f.device
     rng = np.random.default_rng(7)
     B = (4096 if quick else 16384) + 37  # ragged last tile
-    # the backward-carry init as the pipeline builds it: the scan in the
-    # run's compute dtype (bf16 for the bf16 config's fast_bf16 kernel)
-    init36 = zero_prefix_state(params, 36)
-    init36_bf16 = zero_prefix_state(params, 36, compute_dtype=torch.bfloat16)
-    settings = [("T100_dense", 100, "dense", False),
-                ("T64_dense_bwd36", 64, "dense", True),
-                ("T100_packed", 100, "packed", False)]
+    # the longer settings at fewer reads: their plain versions take time
+    # in proportion to B * T (plain high 3.2 s a call at 4133 reads and
+    # T = 300), and no term of the gates grows with B
+    B_long = (1024 if quick else 4096) + 37
+    B_192 = (256 if quick else 1024) + 37
+    # (name, T, semantics, backward-carry steps, reads): the -l 100 path's
+    # buckets (T = 100 and the 64 bucket's 36-step init), and the -l 300
+    # grid's (configuration 4): its full bucket, dense with the 256
+    # bucket's 44-step init and packed, and the 192 bucket with its 108
+    settings = [("T100_dense", 100, "dense", 0, B),
+                ("T64_dense_bwd36", 64, "dense", 36, B),
+                ("T100_packed", 100, "packed", 0, B),
+                ("T300_dense_bwd44", 300, "dense", 44, B_long),
+                ("T192_dense_bwd108", 192, "dense", 108, B_192),
+                ("T300_packed", 300, "packed", 0, B_long)]
     max_err = {mode: 0.0 for mode in MODES}
     plain_ms = {}
+    t300_plain = {}  # the tensor-core kernels' plain versions at T = 300
     with torch.no_grad():
-        for name, T, sem, with_init in settings:
+        for name, T, sem, k, B in settings:
+            t_setting = time.perf_counter()
+            # the backward-carry init as the pipeline builds it: the scan in
+            # the run's compute dtype (bf16 for the bf16 config's fast_bf16)
+            init = {"fp32": zero_prefix_state(params, k),
+                    "bf16": zero_prefix_state(params, k, compute_dtype=torch.bfloat16)}
             tok_np, len_np = random_tokens(rng, B, T)
             tok = torch.from_numpy(tok_np).to(dev)
             lens = torch.from_numpy(len_np).to(dev)
             out = {}
             for mode in MODES:
                 bwd = None
-                if with_init:
-                    bwd = init36_bf16 if mode == "fast_bf16" else init36
+                if k:
+                    bwd = init["bf16" if mode == "fast_bf16" else "fp32"]
                 got = bilstm_logits_cuda(params, tok, lens, semantics=sem,
                                          mode=mode, bwd_init=bwd)
                 got = got.cpu().numpy()
@@ -480,7 +523,9 @@ def phase_kernels(params, quick):
                 if mode in TC_GATE:
                     # the tensor cores sum in their own order: held to the
                     # gate, beside what a change of order alone does
-                    r, _ = gate_tc(params, mode, tok, lens, sem, bwd, got, name)
+                    r, ms = gate_tc(params, mode, tok, lens, sem, bwd, got, name)
+                    if name == "T300_dense_bwd44":
+                        t300_plain[mode] = ms
                     inv = row_invariance(params, mode, tok, lens, sem, bwd)
                     emit("kernels", kernel=mode, setting=name, B=B,
                          row_invariance=inv)
@@ -504,6 +549,7 @@ def phase_kernels(params, quick):
                 # what a user of the fast modes gives up: not a gate
                 emit("kernels", kernel=mode, setting=name, B=B, vs="exact",
                      **compare(out[mode], out["exact"]))
+            emit("kernels", setting=name, B=B, wall_s=time.perf_counter() - t_setting)
         # the gate once more at the batch of one device call of the main
         # path (the timing batch): its terms must not depend on the number
         # of reads, and here the plain versions of the tensor-core kernels
@@ -516,7 +562,8 @@ def phase_kernels(params, quick):
             r, plain_ms[mode] = gate_tc(params, mode, tok, None, "dense", None,
                                         got.cpu().numpy(), "T100_dense_path_batch")
             max_err[mode] = max(max_err[mode], r["max_abs"])
-    return max_err, {"plain_ms": plain_ms, "plain_B": Bp}
+    return max_err, {"plain_ms": plain_ms, "plain_B": Bp, "t300_plain_ms": t300_plain,
+                     "t300_plain_B": B_long}
 
 
 def high_placement():
@@ -537,11 +584,97 @@ def high_placement():
     return {"sms": sms, "resident_clusters": n.value, "idle_sms": sms - 2 * n.value}
 
 
-def phase_timing(params, quick, tc_plain, sass):
-    """Times at the main path's full device call: 2 x 131072 reads, T=100."""
+def bound(mode, B, T, sass):
+    """The least time of one call over B reads of T steps: the largest of
+    the bytes, each input read once and the output written once (tokens,
+    gather, W_hh in its type -- high's two bf16 limbs: 4 bytes an element
+    --, the token table; last_out [B, 256] fp32 out); the multiply-adds at
+    the peak rate of their type (fp32 for exact, bf16 tensor cores for
+    high's limbs and the fast modes' single pass); and the cell's
+    evaluations (2*T*H a read) on the CUDA cores: the instructions of one
+    cell in the mode's micro-kernel (read from the SASS in the build phase)
+    at the issue rate, or its MUFU instructions at theirs, whichever takes
+    longer. For exact the fp32 products (FFMA) and the cell issue on the
+    same CUDA-core slots, so its compute takes their sum; the tensor-core
+    kernels overlap their products with the cell, so theirs is the larger."""
+    w_bytes = {"exact": 4, "high": 4, "fast": 2, "fast_bf16": 2}
+    flops = 2.0 * 2 * T * G * H * B
+    cells = 2.0 * T * H * B
+    products_ms = 1e3 * flops / {"exact": FP32_FLOPS, "high": BF16_TC_FLOPS / 3,
+                                 "fast": BF16_TC_FLOPS, "fast_bf16": BF16_TC_FLOPS}[mode]
+    nbytes = (B * T + 4 * B + w_bytes[mode] * 2 * H * G + 4 * 2 * 5 * G
+              + 4 * B * 2 * H)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    cell = sass.get("cell:" + mode)
+    cell_ms = None if cell is None else 1e3 * cells * max(
+        cell["insns"] / CUDA_CORE_INSTR_PER_S, cell["mufu"] / MUFU_PER_S)
+    if mode == "exact":
+        compute_ms = products_ms + (cell_ms or 0.0)
+    else:
+        compute_ms = max(products_ms, cell_ms or 0.0)
+    return {"bytes_ms": bytes_ms, "products_ms": products_ms, "cell_ms": cell_ms,
+            "compute_ms": compute_ms,
+            "compute_rule": "products + cell" if mode == "exact" else "max(products, cell)",
+            "cell_insns": cell and cell["insns"], "cell_mufu": cell and cell["mufu"],
+            "fp32_cuda_core_ms": 1e3 * flops / FP32_FLOPS,
+            "bound_ms": max(bytes_ms, compute_ms),
+            "bound_by": "bytes" if bytes_ms >= compute_ms else "operations"}
+
+
+def lib_chunk(T):
+    """Reads per cuDNN call at T steps: its workspace grows with B * T, so
+    at most LIB_CHUNK * 100 / T, rounded down to a power of two (each timed
+    B is a power of two, so the calls are equal)."""
+    return 1 << (LIB_CHUNK * 100 // T).bit_length() - 1
+
+
+def cudnn_yardstick(params):
+    """One-hot tokens [B, T] on the card -> logits from cuDNN's LSTM (fp32,
+    TF32 off, and bf16) plus the dense gather and the head, in calls of
+    lib_chunk(T) reads (one call over all B reads asks for ~378 GiB of
+    workspace at B = 262144, T = 100); the port never calls it."""
     import torch
 
     from ribodetector_tpu_torch.models.bilstm import head
+
+    dev = params.w_hh_f.device
+    torch.backends.cudnn.allow_tf32 = False
+    lstm = torch.nn.LSTM(4, H, 1, batch_first=True, bidirectional=True).to(dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(params.w_ih_f.T)
+        lstm.weight_hh_l0.copy_(params.w_hh_f.T)
+        lstm.bias_ih_l0.copy_(params.b_f)
+        lstm.bias_hh_l0.zero_()
+        lstm.weight_ih_l0_reverse.copy_(params.w_ih_b.T)
+        lstm.weight_hh_l0_reverse.copy_(params.w_hh_b.T)
+        lstm.bias_ih_l0_reverse.copy_(params.b_b)
+        lstm.bias_hh_l0_reverse.zero_()
+    nets = {"fp32": (lstm, torch.float32),
+            "bf16": (copy.deepcopy(lstm).to(torch.bfloat16), torch.bfloat16)}
+
+    def library(tok, lib):
+        net, dtype = nets[lib]
+        B, T = tok.shape
+        onehot = torch.nn.functional.one_hot(tok.long(), 5)[..., :4].float()
+        nb = min(B, lib_chunk(T))
+        rows = torch.arange(nb, device=dev)
+        h0 = torch.zeros((2, nb, H), device=dev, dtype=dtype)
+        logits = []
+        for i in range(0, B, nb):
+            x = onehot[i: i + nb]
+            out, _ = net(x.to(dtype), (h0, h0))
+            g = T - 1 - x.sum(2).flip(1).argmax(1)
+            logits.append(head(params, out[rows, g].float()))
+        return torch.cat(logits)
+
+    return library
+
+
+def phase_timing(params, quick, tc_plain, sass):
+    """Times at the main path's full device call (2 x 131072 reads, T=100),
+    and of high and exact at -l 300's full bucket (B = 65536, T = 300)."""
+    import torch
+
     from ribodetector_tpu_torch.ops.lstm_cuda import PLAIN, bilstm_logits_cuda
 
     dev = params.w_hh_f.device
@@ -550,6 +683,7 @@ def phase_timing(params, quick, tc_plain, sass):
     tok_np, _ = random_tokens(rng, B, T)
     tok = torch.from_numpy(tok_np).to(dev)
     res = {}
+    library = cudnn_yardstick(params)
     with torch.no_grad():
         for mode in MODES:
             res[mode] = {"ms": cuda_time_ms(
@@ -561,87 +695,47 @@ def phase_timing(params, quick, tc_plain, sass):
         for mode in ("high", "fast", "fast_bf16"):
             res[mode]["plain_ms"] = tc_plain["plain_ms"][mode]
             res[mode]["plain_B"] = tc_plain["plain_B"]
-        # yardstick: cuDNN's LSTM on the same one-hot batch, plus the dense
-        # gather and the head; fp32 (TF32 off) beside exact and high, bf16
-        # beside the fast kernels; the port never calls it
-        torch.backends.cudnn.allow_tf32 = False
-        lstm = torch.nn.LSTM(4, H, 1, batch_first=True, bidirectional=True).to(dev)
-        lstm.weight_ih_l0.copy_(params.w_ih_f.T)
-        lstm.weight_hh_l0.copy_(params.w_hh_f.T)
-        lstm.bias_ih_l0.copy_(params.b_f)
-        lstm.bias_hh_l0.zero_()
-        lstm.weight_ih_l0_reverse.copy_(params.w_ih_b.T)
-        lstm.weight_hh_l0_reverse.copy_(params.w_hh_b.T)
-        lstm.bias_ih_l0_reverse.copy_(params.b_b)
-        lstm.bias_hh_l0_reverse.zero_()
-        lstm_bf16 = copy.deepcopy(lstm).to(torch.bfloat16)
-        # one cuDNN call over all B reads asks for ~378 GiB of workspace, so
-        # the yardstick runs in calls of at most LIB_CHUNK reads
-        onehot = torch.nn.functional.one_hot(tok.long(), 5)[..., :4].float()
-        nb = min(B, LIB_CHUNK)
-        rows = torch.arange(nb, device=dev)
-
-        def library(net, dtype):
-            h0 = torch.zeros((2, nb, H), device=dev, dtype=dtype)
-            logits = []
-            for i in range(0, B, nb):
-                x = onehot[i: i + nb]
-                out, _ = net(x.to(dtype), (h0, h0))
-                g = T - 1 - x.sum(2).flip(1).argmax(1)
-                logits.append(head(params, out[rows, g].float()))
-            return torch.cat(logits)
-
-        lib_ms = {"fp32": cuda_time_ms(lambda: library(lstm, torch.float32), 2),
-                  "bf16": cuda_time_ms(lambda: library(lstm_bf16, torch.bfloat16), 2)}
+        # the cuDNN yardstick: fp32 beside exact and high, bf16 beside the
+        # fast kernels
+        lib_ms = {lib: cuda_time_ms(lambda: library(tok, lib), 2) for lib in ("fp32", "bf16")}
         # agreement of each yardstick with the exact kernel (sanity only)
         exact = bilstm_logits_cuda(params, tok, semantics="dense", mode="exact")
-        lib_err = {"fp32": float((library(lstm, torch.float32) - exact).abs().max()),
-                   "bf16": float((library(lstm_bf16, torch.bfloat16) - exact).abs().max())}
-        del onehot, exact
+        lib_err = {lib: float((library(tok, lib) - exact).abs().max())
+                   for lib in ("fp32", "bf16")}
+        del exact
         torch.cuda.empty_cache()
-    # least time, the largest of: bytes, each input read once and the
-    # output written once (tokens, gather, W_hh in its type -- high's two
-    # bf16 limbs: 4 bytes an element --, the token table;
-    # last_out [B, 256] fp32 out); the multiply-adds at the peak rate of
-    # their type (fp32 for exact, bf16 tensor cores for high's limbs and the
-    # fast modes' single pass); and the cell's evaluations (2*T*H a read) on
-    # the CUDA cores: the instructions of one cell in the mode's micro-kernel
-    # (read from the SASS in the build phase) at the issue rate, or its MUFU
-    # instructions at theirs, whichever takes longer
-    # For exact the fp32 products (FFMA) and the cell issue on the same
-    # CUDA-core slots, so its compute takes their sum; the tensor-core
-    # kernels overlap their products with the cell, so theirs is the larger.
-    w_bytes = {"exact": 4, "high": 4, "fast": 2, "fast_bf16": 2}
-    flops = 2.0 * 2 * T * G * H * B
-    cells = 2.0 * T * H * B
-    ops_ms = {"exact": 1e3 * flops / FP32_FLOPS,
-              "high": 1e3 * 3 * flops / BF16_TC_FLOPS,
-              "fast": 1e3 * flops / BF16_TC_FLOPS,
-              "fast_bf16": 1e3 * flops / BF16_TC_FLOPS}
     for mode in MODES:
-        nbytes = (B * T + 4 * B + w_bytes[mode] * 2 * H * G + 4 * 2 * 5 * G
-                  + 4 * B * 2 * H)
-        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        cell = sass.get("cell:" + mode)
-        cell_ms = None if cell is None else 1e3 * cells * max(
-            cell["insns"] / CUDA_CORE_INSTR_PER_S, cell["mufu"] / MUFU_PER_S)
         lib = "bf16" if mode.startswith("fast") else "fp32"
-        res[mode]["library_ms"] = lib_ms[lib]
-        if mode == "exact":
-            compute_ms = ops_ms[mode] + (cell_ms or 0.0)
-        else:
-            compute_ms = max(ops_ms[mode], cell_ms or 0.0)
-        res[mode]["bound_ms"] = max(bytes_ms, compute_ms)
-        res[mode]["bound_by"] = "bytes" if bytes_ms >= compute_ms else "operations"
+        b = bound(mode, B, T, sass)
+        res[mode].update(library_ms=lib_ms[lib], bound_ms=b["bound_ms"],
+                         bound_by=b["bound_by"])
         emit("timing", kernel=mode, B=B, T=T, library=f"cudnn_{lib}",
              **(high_placement() if mode == "high" else {}),
-             library_err=lib_err[lib], library_calls=-(-B // LIB_CHUNK),
-             bytes_ms=bytes_ms, products_ms=ops_ms[mode], cell_ms=cell_ms,
-             compute_ms=compute_ms,
-             compute_rule="products + cell" if mode == "exact" else "max(products, cell)",
-             cell_insns=cell and cell["insns"], cell_mufu=cell and cell["mufu"],
+             library_err=lib_err[lib], library_calls=-(-B // lib_chunk(T)),
              step_loop_insns_per_cell=sass.get(mode, {}).get("step_loop_insns_per_cell"),
-             fp32_cuda_core_ms=1e3 * flops / FP32_FLOPS, **res[mode])
+             **{**b, **res[mode]})
+
+    # -l 300's full bucket, the longest rows any kernel reads (one byte a
+    # token at a stride of T): high (every bucket of configuration 4) and
+    # exact (its probe arm and --precision exact); high's plain version was
+    # timed in the kernels phase, at T300_dense_bwd44's batch
+    B3, T3 = (4096 if quick else 65536), 300
+    tok = torch.from_numpy(random_tokens(np.random.default_rng(12), B3, T3)[0]).to(dev)
+    with torch.no_grad():
+        lib3 = cuda_time_ms(lambda: library(tok, "fp32"), 2)
+        for mode in ("exact", "high"):
+            ms = cuda_time_ms(lambda: bilstm_logits_cuda(params, tok, semantics="dense",
+                                                         mode=mode), 3)
+            if mode == "exact":
+                plain_ms, plain_B = cuda_time_ms(
+                    lambda: PLAIN["exact"](params, tok, semantics="dense"), 2), B3
+            else:
+                plain_ms, plain_B = tc_plain["t300_plain_ms"]["high"], tc_plain["t300_plain_B"]
+            emit("timing", kernel=mode, B=B3, T=T3, ms=ms, plain_ms=plain_ms, plain_B=plain_B,
+                 library="cudnn_fp32", library_ms=lib3,
+                 library_calls=-(-B3 // lib_chunk(T3)),
+                 **bound(mode, B3, T3, sass))
+    torch.cuda.empty_cache()
     return res
 
 
@@ -703,10 +797,13 @@ def fastq(seqs):
 
 
 def read_indices(path):
+    """The index of every record in a FASTQ file (4 lines a record, "@r<i>")
+    or in a FASTA file as the CLI writes it (2 lines a record, ">r<i>")."""
     op = gzip.open if path.endswith("gz") else open
     with op(path, "rb") as fh:
         lines = fh.read().split(b"\n")
-    return np.array([int(l[2:]) for l in lines[0::4] if l], np.int64)
+    step = 2 if lines[0].startswith(b">") else 4
+    return np.array([int(l[2:]) for l in lines[0::step] if l], np.int64)
 
 
 def read_partition(files, n):
@@ -725,25 +822,25 @@ def read_partition(files, n):
     return got
 
 
-def outputs(dirname, tag, paired, ensure):
+def outputs(dirname, tag, paired, ensure, ext=".fq"):
     """(argv for -o/-r, {label: files}); norrna outputs gz, rrna plain."""
     sides = (1, 2) if paired else (1,)
-    norrna = [os.path.join(dirname, f"{tag}_norrna_{s}.fq.gz") for s in sides]
-    rrna = [os.path.join(dirname, f"{tag}_rrna_{s}.fq") for s in sides]
+    norrna = [os.path.join(dirname, f"{tag}_norrna_{s}{ext}.gz") for s in sides]
+    rrna = [os.path.join(dirname, f"{tag}_rrna_{s}{ext}") for s in sides]
     files = {0: norrna, 1: rrna}
     if paired and ensure == "both":
         files[-1] = [f + ".unclassified.gz" for f in norrna]
     return ["-o", *norrna, "-r", *rrna], files
 
 
-def side_logits(params, seqs, fn):
-    """[n, 2] logits of fn(params, tokens) over reads encoded at T=100 on
+def side_logits(params, seqs, fn, T=100):
+    """[n, 2] logits of fn(params, tokens) over reads encoded at T (-l) on
     the card, in calls of 65536 reads."""
     import torch
 
     from ribodetector_tpu_torch.encode import encode_batch
 
-    tok, _ = encode_batch(seqs, 100)
+    tok, _ = encode_batch(seqs, T)
     dev = params.w_hh_f.device
     with torch.no_grad():
         return np.concatenate([
@@ -780,7 +877,7 @@ def run_cli(argv):
     t0 = time.perf_counter()
     cli_main(argv)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, dict(lstm_cuda.LAUNCHES)
+    return time.perf_counter() - t0, lstm_cuda.launches()
 
 
 def phase_main(params, tmp, n=262144):
@@ -801,19 +898,223 @@ def phase_main(params, tmp, n=262144):
     out, files = outputs(tmp, "main", True, "both")
     wall, launches = run_cli(["-l", "100", "-i", *inputs, *out, "-e", "both",
                               "--profile"])
-    got = read_partition(files, n)
-    bad = got != want
-    emit("main", pairs=n, reads=2 * n, wall_s=wall, reads_per_s=2 * n / wall,
-         data_gen_s=gen_s, launches=launches, mismatches=int(bad.sum()),
-         mismatches_m5e_3=int(bad[margin >= 5e-3].sum()),
-         counts={str(k): int((got == k).sum()) for k in (0, 1, -1)})
-    check(not bad[margin >= 5e-3].any(),
-          "output partition disagrees with plain exact labels at margin >= 5e-3")
+    got = held("main", files, want, margin, wall, 2 * n, pairs=n, data_gen_s=gen_s,
+               launches=launches)
     # the probe runs exact once (its reference arm) and high once; a probe
     # that fell back to exact would run every batch on exact instead
     check(launches["exact"] == 1 and launches["high"] >= 2,
           f"the main path's batches did not run on high: {launches}")
-    return launches, inputs, got, wall
+    return launches, inputs, got, wall, logits
+
+
+CONFIG4_LEN = 300
+CONFIG4_BUCKETS = [64, 128, 192, 256, 300]  # choose_buckets(300, "auto")
+
+
+def config4_reads(rng, n, full):
+    """n reads of 40-320 bp for configuration 4 (-l 300), as str: lengths
+    uniform over 40-300 bp, ~3% of them 301-320 bp (truncated to 300 by
+    the parsers), ~3% with three N calls, ~2% with ten lowercase bases,
+    and reads 5 and n // 2 all N (on both ends of those pairs: the router
+    pins them to the full bucket). The reads where `full` is set are clean
+    and exactly 300 bp (a pair takes the FASTQ 2-bit lane when both its
+    ends are). tests/test_torch_configs.py makes its reads here too."""
+    L = CONFIG4_LEN
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    lengths = rng.integers(40, L + 1, n)
+    kind = rng.random(n)
+    over = (kind < 0.03) & ~full
+    lengths[over] = rng.integers(L + 1, 321, over.sum())
+    lengths[full] = L
+    seqs = []
+    for i in range(n):
+        s = bases[rng.integers(0, 4, lengths[i])].copy()
+        if not full[i] and 0.03 <= kind[i] < 0.06:
+            s[rng.integers(0, lengths[i], 3)] = ord("N")
+        elif not full[i] and 0.06 <= kind[i] < 0.08:
+            s[:10] += 32  # lowercase
+        seqs.append(s.tobytes().decode())
+    seqs[5] = "N" * 120
+    seqs[n // 2] = "N" * L
+    return seqs
+
+
+def config4_pairs(n, rng):
+    """Configuration 4's pairs: (each side's reads as bytes, `full`, the
+    ~10% of pairs clean and exactly 300 bp on both ends)."""
+    full = rng.random(n) < 0.10
+    full[[5, n // 2]] = False
+    return [[s.encode() for s in config4_reads(rng, n, full)] for _ in (1, 2)], full
+
+
+def fasta(seqs, width=80):
+    """FASTA records ">r<i>", the sequence wrapped at `width` bases a line."""
+    return b"".join(
+        b">r%d\n%s\n" % (i, b"\n".join(s[j: j + width] for j in range(0, len(s), width)))
+        for i, s in enumerate(seqs))
+
+
+def pair_buckets(seqs_per_side, buckets, max_len):
+    """Each pair's bucket index as the runner routes it (the larger of its
+    ends'), from the reads as the parser encodes them."""
+    from ribodetector_tpu_torch import native
+    from ribodetector_tpu_torch.encode import encode_batch
+    from ribodetector_tpu_torch.runtime.buckets import route_records
+
+    idx = []
+    for seqs in seqs_per_side:
+        tok, lengths = encode_batch(seqs, max_len)
+        idx.append(route_records(lengths, native.pack_b5(tok), buckets, max_len))
+    return np.max(idx, axis=0)
+
+
+def mode_margin(logits, ensure):
+    """The margin under which a pair's label may flip: the summed logits'
+    under ensure none (the label is their argmax), else the smaller end's."""
+    if ensure == "none":
+        total = logits[0] + logits[1]
+        return np.abs(total[:, 1] - total[:, 0])
+    return margin_of(*logits)
+
+
+def held(phase, files, want, margin, wall, reads, **kw):
+    """Reads a CLI run's partition, emits the phase's line (wall and
+    reads/s on it) and fails on a mismatch with the plain exact labels
+    `want` at a margin >= 5e-3. Returns the partition."""
+    got = read_partition(files, len(want))
+    bad = got != want
+    emit(phase, wall_s=wall, reads=reads, reads_per_s=reads / wall,
+         mismatches=int(bad.sum()), mismatches_m5e_3=int(bad[margin >= 5e-3].sum()),
+         max_mismatch_margin=float(margin[bad].max(initial=0.0)),
+         counts={str(k): int((got == k).sum()) for k in (0, 1, -1)}, **kw)
+    check(not bad[margin >= 5e-3].any(),
+          f"{kw.get('run', phase)}: partition disagrees with plain exact labels "
+          f"at margin >= 5e-3")
+    return got
+
+
+def phase_configs(params, tmp, main_inputs, main_logits, main_wall, n=65536):
+    """The JAX package's other documented configurations through the
+    detect CLI on the card, each against plain exact labels on the same
+    reads under the run's ensure mode: configuration 4 (-l 300, five
+    buckets, FASTA and FASTQ.gz), 2-3 (the main phase's pairs under -e
+    rrna, norrna and none), 1 (side 1 of them single-end, --chunk_size
+    256), and the main phase's pairs at --precision exact (3.3x high's
+    kernel time: wall and busy share). Returns each kernel's launches
+    summed over the runs (each run counted from 0)."""
+    from ribodetector_tpu_torch.ops import dispatch, lstm_cuda
+    from ribodetector_tpu_torch.runtime.buckets import choose_buckets
+    from ribodetector_tpu_torch.runtime.ensure import paired_final_labels
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(MODES, 0)
+
+    def cli(argv):
+        wall, launches = run_cli(argv)
+        for mode, k in launches.items():
+            total[mode] += k
+        return wall, launches
+
+    L = CONFIG4_LEN
+    check(choose_buckets(L, "auto") == CONFIG4_BUCKETS,
+          f"unexpected bucket grid at -l {L}: {choose_buckets(L, 'auto')}")
+    t0 = time.perf_counter()
+    seqs, full = config4_pairs(n, np.random.default_rng(31))
+    inputs = {"fasta": [os.path.join(tmp, f"config4_{s}.fa") for s in (1, 2)],
+              "fastq_gz": [os.path.join(tmp, f"config4_{s}.fq.gz") for s in (1, 2)]}
+    for side, fa, fq in zip(seqs, inputs["fasta"], inputs["fastq_gz"]):
+        with open(fa, "wb") as fh:
+            fh.write(fasta(side))
+        with open(fq, "wb") as fh:
+            fh.write(gzip.compress(fastq(side), compresslevel=1))
+    gen_s = time.perf_counter() - t0
+    # the FASTA parser uppercases (reference quirk #1), the FASTQ one does
+    # not: the reads with lowercase bases get their own FASTQ reference
+    upper = [[x.upper().decode() for x in side] for side in seqs]
+    ref = {"fasta": [side_logits(params, side, exact_logits, T=L) for side in upper]}
+    ref["fastq_gz"] = []
+    for side, logits in zip(seqs, ref["fasta"]):
+        lower = [i for i, x in enumerate(side) if x != x.upper()]
+        logits = logits.copy()
+        logits[lower] = side_logits(params, [side[i].decode() for i in lower],
+                                    exact_logits, T=L)
+        ref["fastq_gz"].append(logits)
+    routed = pair_buckets(upper, CONFIG4_BUCKETS, L)
+    per_bucket = np.bincount(routed, minlength=len(CONFIG4_BUCKETS))
+    check((per_bucket > 0).all(), f"a bucket holds no pair: {per_bucket}")
+
+    # a fresh parity-marker cache: the first run at each -l probes
+    os.environ["RIBODETECTOR_TPU_TORCH_CACHE"] = os.path.join(tmp, "cache_configs")
+    b2_calls = []
+    unpack_b2 = dispatch.unpack_b2_tokens
+
+    def counted_b2(packed, max_len):
+        b2_calls.append(packed.shape[0])
+        return unpack_b2(packed, max_len)
+
+    dispatch.unpack_b2_tokens = counted_b2  # the steps import it when built
+    try:
+        for fmt in ("fasta", "fastq_gz"):
+            logits = ref[fmt]
+            want = paired_final_labels(*logits, "both")
+            b2_calls.clear()
+            out, files = outputs(tmp, f"config4_{fmt}", True, "both",
+                                 ext=".fa" if fmt == "fasta" else ".fq")
+            wall, launches = cli(["-l", str(L), "-i", *inputs[fmt], *out, "-e", "both"])
+            by_t = {t: lstm_cuda.launches(T=t)["high"] for t in CONFIG4_BUCKETS}
+            lanes = per_bucket.copy()
+            if fmt == "fastq_gz":  # clean 300 bp pairs leave the 300 bucket
+                lanes[-1] -= int(full.sum())
+            held("configs", files, want, margin_of(*logits), wall, 2 * n,
+                 run=f"config4_{fmt}", max_len=L, bucket_pairs=dict(zip(CONFIG4_BUCKETS, lanes.tolist())),
+                 b2_lane_pairs=int(full.sum()) if fmt == "fastq_gz" else 0,
+                 b2_unpack_calls=len(b2_calls), high_launches_by_T=by_t,
+                 launches=launches, data_gen_s=gen_s)
+            # every bucket launched high (the 300 one also as the probe's arm
+            # in the first run, or beside the 2-bit lane's launch after it)
+            check(all(by_t.get(t, 0) >= 1 for t in CONFIG4_BUCKETS) and by_t[L] >= 2,
+                  f"config4 {fmt}: high was not launched on every bucket: {by_t}")
+            check(launches["exact"] <= 1 and launches["fast"] == launches["fast_bf16"] == 0,
+                  f"config4 {fmt}: launched {launches}")
+            check(bool(b2_calls) == (fmt == "fastq_gz"),
+                  f"config4 {fmt}: {len(b2_calls)} batches on the 2-bit lane")
+    finally:
+        dispatch.unpack_b2_tokens = unpack_b2
+
+    # configurations 2-3: the main phase's pairs under the other ensure modes
+    main_n = len(main_logits[0])
+    discordant = int((main_logits[0].argmax(1) != main_logits[1].argmax(1)).sum())
+    for ensure in ("rrna", "norrna", "none"):
+        out, files = outputs(tmp, f"ensure_{ensure}", True, ensure)
+        wall, launches = cli(["-l", "100", "-i", *main_inputs, *out, "-e", ensure])
+        held("configs", files, paired_final_labels(*main_logits, ensure),
+             mode_margin(main_logits, ensure), wall, 2 * main_n, run=f"ensure_{ensure}",
+             discordant_pairs=discordant, launches=launches)
+        check(launches["high"] >= 1 and launches["exact"] <= 1,
+              f"-e {ensure}: the batches did not run on high: {launches}")
+
+    # configuration 1: side 1 single-end, chunked
+    out, files = outputs(tmp, "single_chunked", False, "none")
+    wall, launches = cli(["-l", "100", "-i", main_inputs[0], *out, "--chunk_size", "256"])
+    held("configs", files, main_logits[0].argmax(1), margin_of(main_logits[0]), wall,
+         main_n, run="single_end_chunk_size_256", launches=launches)
+    check(launches["high"] >= 1, f"single-end: the batches did not run on high: {launches}")
+
+    # the main phase's pairs at --precision exact (3.3x high's kernel
+    # time), and its busy share from a traced rerun (the high run's: the
+    # trace phase)
+    want = paired_final_labels(*main_logits, "both")
+    out, files = outputs(tmp, "exact", True, "both")
+    wall, launches = cli(["-l", "100", "-i", *main_inputs, *out, "-e", "both",
+                              "--precision", "exact"])
+    got = held("configs", files, want, margin_of(*main_logits), wall, 2 * main_n,
+               run="precision_exact", launches=launches, high_wall_s=main_wall)
+    check(launches["exact"] >= 2 and launches["high"] == 0,
+          f"--precision exact launched {launches}")
+    busy = traced_run(tmp, "exact_trace", main_inputs, ["--precision", "exact"], got, wall)
+    emit("configs", run="precision_exact_trace", high_untraced_wall_s=main_wall, **busy)
+    emit("configs", run="phase", wall_s=time.perf_counter() - t_phase, launches=total)
+    return total
 
 
 TRAIN_READS = 8192  # per class: 2 x 8192 training reads
@@ -882,7 +1183,7 @@ def train_cli(paths, out, extra, max_len=100):
     _train(["--rrna", paths["rrna"], "--norrna", paths["norrna"], "-l", str(max_len),
             "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR), "--out", out, *extra], "cuda")
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, dict(lstm_cuda.LAUNCHES)
+    return time.perf_counter() - t0, lstm_cuda.launches()
 
 
 def step_rates(params, data, val):
@@ -984,7 +1285,7 @@ def detect_with(tmp, npz, tag, inputs):
     pred.load_model()
     pred.detect()
     torch.cuda.synchronize()
-    return pred, time.perf_counter() - t0, dict(lstm_cuda.LAUNCHES), files
+    return pred, time.perf_counter() - t0, lstm_cuda.launches(), files
 
 
 def phase_train(tmp):
@@ -1142,7 +1443,7 @@ t0 = time.perf_counter()
 with contextlib.redirect_stdout(printed):
     worker(rank, a["world"], a["tp"], a["backend"], a["device"], a["argv"], a["init_method"])
 print(json.dumps({"rank": rank, "wall_s": time.perf_counter() - t0, "step_s": steps,
-                  "launches": dict(lstm_cuda.LAUNCHES),
+                  "launches": lstm_cuda.launches(),
                   "stdout": printed.getvalue().splitlines()}), flush=True)
 """
 
@@ -1365,7 +1666,7 @@ def phase_serve(params, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     Predictor._build_infer_locked, Predictor.load_model = build, load
-    launches = dict(lstm_cuda.LAUNCHES)
+    launches = lstm_cuda.launches()
 
     resps = [json.loads(l) for l in out.getvalue().splitlines()]
     check([r.get("id") for r in resps] == ["pairs", "pairs_again", None, "single",
@@ -1449,17 +1750,23 @@ def phase_config(params, tmp):
 
 
 def phase_trace(tmp, inputs, want, untraced_wall):
-    """The main path once more under --trace-dir; the card's busy share is
+    """The main path once more under --trace-dir (trace_busy)."""
+    emit("trace", **traced_run(tmp, "trace", inputs, [], want, untraced_wall))
+
+
+def traced_run(tmp, tag, inputs, extra, want, untraced_wall):
+    """The main path's command (with `extra` flags) once more under
+    --trace-dir, its partition equal to `want`; the card's busy share is
     the union of its kernel intervals in the trace over the run's wall. The
     profiler's own start and stop lengthen the traced wall, so the share is
     also given over the trace's device window (first kernel start to last
     kernel end) and over the untraced run's wall."""
-    trace_dir = os.path.join(tmp, "trace")
-    out, files = outputs(tmp, "trace", True, "both")
+    trace_dir = os.path.join(tmp, tag)
+    out, files = outputs(tmp, tag, True, "both")
     wall, launches = run_cli(["-l", "100", "-i", *inputs, *out, "-e", "both",
-                              "--trace-dir", trace_dir])
+                              "--trace-dir", trace_dir, *extra])
     check(np.array_equal(read_partition(files, len(want)), want),
-          "the traced run's partition differs from the untraced one")
+          f"the traced run's partition differs from the untraced one ({tag})")
     traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
     check(len(traces) == 1, f"expected one trace file, found {traces}")
     with open(os.path.join(trace_dir, traces[0])) as fh:
@@ -1486,14 +1793,14 @@ def phase_trace(tmp, inputs, want, untraced_wall):
         if e.get("cat") == "kernel":
             by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    emit("trace", wall_s=wall, untraced_wall_s=untraced_wall, trace_span_s=trace_s,
-         device_window_s=window_s, launches=launches, kernel_events=n_kernels,
-         kernel_busy_s=kernel_s, busy_share=kernel_s / wall,
-         busy_share_of_device_window=kernel_s / window_s,
-         busy_share_of_untraced_wall=kernel_s / untraced_wall,
-         busy_with_copies_s=busy_s, busy_share_with_copies=busy_s / wall,
-         top_kernels_s=dict(top))
-    check(n_kernels > 0, "the trace holds no kernel of the card")
+    check(n_kernels > 0, f"the trace holds no kernel of the card ({tag})")
+    return dict(wall_s=wall, untraced_wall_s=untraced_wall, trace_span_s=trace_s,
+                device_window_s=window_s, launches=launches, kernel_events=n_kernels,
+                kernel_busy_s=kernel_s, busy_share=kernel_s / wall,
+                busy_share_of_device_window=kernel_s / window_s,
+                busy_share_of_untraced_wall=kernel_s / untraced_wall,
+                busy_with_copies_s=busy_s, busy_share_with_copies=busy_s / wall,
+                top_kernels_s=dict(top))
 
 
 # the CLI's main in a process of its own; its last stdout line is a JSON
@@ -1509,8 +1816,8 @@ t0 = time.perf_counter()
 main(sys.argv[2:])
 torch.cuda.synchronize()
 print(json.dumps({"wall_s": time.perf_counter() - t0,
-                  "launches": dict(lstm_cuda.LAUNCHES),
-                  "card_launches": {str(k): v for k, v in lstm_cuda.CARD_LAUNCHES.items()}}),
+                  "launches": lstm_cuda.launches(),
+                  "card_launches": {str(k): v for k, v in lstm_cuda.card_launches().items()}}),
       flush=True)
 """
 CHILDREN = []  # every process started, killed at exit if still running
@@ -1696,12 +2003,45 @@ def phase_cards(tmp, inputs):
     _, want = outputs(tmp, "main", True, "both")
     argv, files = main_argv(tmp, "cards", inputs)
     wall, launches = run_cli(argv + ["-d", "0,1"])
-    per_card = {k: dict(v) for k, v in lstm_cuda.CARD_LAUNCHES.items()}
+    per_card = lstm_cuda.card_launches()
     same_outputs(files, want, "cards (-d 0,1)")
     emit("cards", cards=2, wall_s=wall, launches=launches, card_launches=per_card)
     check(all(per_card.get(k, {}).get("high", 0) > 0 for k in (0, 1)),
           f"high was not launched on both cards: {per_card}")
     serve_cards(tmp, inputs)
+
+    # the portable runner's split over the cards (Predictor._classify)
+    from ribodetector_tpu_torch.config import DEFAULT_CONFIG
+
+    with open(DEFAULT_CONFIG) as fh:
+        cfg = json.load(fh)
+    cfg["runtime"]["native"] = False
+    path = os.path.join(tmp, "config_portable_cards.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    argv, files = main_argv(tmp, "cards_portable", inputs)
+    wall, launches = run_cli(["-c", path, *argv, "-d", "0,1"])
+    per_card = lstm_cuda.card_launches()
+    same_outputs(files, want, "cards (portable runner, -d 0,1)")
+    emit("cards", run="portable", cards=2, wall_s=wall, launches=launches,
+         card_launches=per_card)
+    check(all(per_card.get(k, {}).get("high", 0) > 0 for k in (0, 1)),
+          f"the portable runner did not launch high on both cards: {per_card}")
+
+    # --precision exact (3.3x high's kernel time) on one card and at -d 0,1
+    walls, files = {}, {}
+    for tag, extra in (("exact_one_card", []), ("exact_cards", ["-d", "0,1"])):
+        argv, files[tag] = main_argv(tmp, tag, inputs)
+        walls[tag], launches = run_cli(argv + ["--precision", "exact", *extra])
+        check(launches["exact"] >= 2 and launches["high"] == 0,
+              f"--precision exact {extra} launched {launches}")
+    per_card = lstm_cuda.card_launches()
+    same_outputs(files["exact_cards"], files["exact_one_card"], "cards (--precision exact)")
+    emit("cards", run="precision_exact", cards=2, wall_s=walls["exact_cards"],
+         one_card_wall_s=walls["exact_one_card"], reads=2 * len(read_indices(inputs[0])),
+         card_launches=per_card)
+    check(all(per_card.get(k, {}).get("exact", 0) > 0 for k in (0, 1)),
+          f"--precision exact -d 0,1 did not launch exact on both cards: {per_card}")
 
 
 def serve_cards(tmp, inputs):
@@ -1725,7 +2065,7 @@ def serve_cards(tmp, inputs):
         walls[tag] = time.perf_counter() - t0
         resp = json.loads(buf.getvalue().splitlines()[0])
         check(resp["status"] == "ok", f"serve {extra}: {resp}")
-    per_card = {k: dict(v) for k, v in lstm_cuda.CARD_LAUNCHES.items()}
+    per_card = lstm_cuda.card_launches()
     same_outputs(files["serve_cards"], files["serve_one_card"], "serve -d 0,1")
     emit("cards", run="serve", cards=2, wall_s=walls["serve_cards"],
          one_card_wall_s=walls["serve_one_card"], card_launches=per_card)
@@ -1747,31 +2087,47 @@ def main(argv):
     from ribodetector_tpu_torch.models import load_params
 
     params = load_params(NPZ, "cuda")
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
     if "--cards" in argv:
         check(torch.cuda.device_count() >= 2, "--cards needs two CUDA cards")
         with tempfile.TemporaryDirectory() as tmp:
-            _, main_inputs, _, _ = phase_main(params, tmp)
-            phase_cards(tmp, main_inputs)
+            _, main_inputs, _, _, _ = timed("main", phase_main, params, tmp)
+            timed("cards", phase_cards, tmp, main_inputs)
             # the training runs' launch counts are each rank child's own
-            phase_train_dist(tmp, dist_reference(tmp), smi)
+            timed("train_dist", lambda: phase_train_dist(tmp, dist_reference(tmp), smi))
+        emit("walls", **walls)
         return
-    max_err, tc_plain = phase_kernels(params, quick)
-    times = phase_timing(params, quick, tc_plain, sass)
+    max_err, tc_plain = timed("kernels", phase_kernels, params, quick)
+    times = timed("timing", phase_timing, params, quick, tc_plain, sass)
     if quick:
+        emit("walls", **walls)
         emit("quick", done=True)
         return
     with tempfile.TemporaryDirectory() as tmp:
         # each path's launches are counted from 0 just before it runs
-        launches, main_inputs, main_got, main_wall = phase_main(params, tmp)
-        train_ref = phase_train(tmp)
+        launches, main_inputs, main_got, main_wall, main_logits = timed(
+            "main", phase_main, params, tmp)
+        # every run's launches are counted from 0; their sums join main's
+        for mode, n in timed("configs", phase_configs, params, tmp, main_inputs,
+                             main_logits, main_wall).items():
+            launches[mode] += n
+        train_ref = timed("train", phase_train, tmp)
         # each rank child counts its own launches, from 0
-        phase_train_dist(tmp, train_ref, smi)
-        launches["fast"] = phase_serve(params, tmp)["fast"]
-        launches["fast_bf16"] = phase_config(params, tmp)["fast_bf16"]
-        phase_trace(tmp, main_inputs, main_got, main_wall)
-        phase_resume(tmp, main_inputs, main_got, main_wall)
-        phase_hosts(tmp, main_inputs, main_got)
-        phase_cards(tmp, main_inputs)
+        timed("train_dist", phase_train_dist, tmp, train_ref, smi)
+        launches["fast"] = timed("serve", phase_serve, params, tmp)["fast"]
+        launches["fast_bf16"] = timed("config", phase_config, params, tmp)["fast_bf16"]
+        timed("trace", phase_trace, tmp, main_inputs, main_got, main_wall)
+        timed("resume", phase_resume, tmp, main_inputs, main_got, main_wall)
+        timed("hosts", phase_hosts, tmp, main_inputs, main_got)
+        timed("cards", phase_cards, tmp, main_inputs)
+    emit("walls", **walls)
     kernels = [
         {
             "name": f"bilstm_{mode}",

@@ -55,17 +55,20 @@ def content(path):
         return fh.read()
 
 
-def assert_margins(ref_params_path, *seq_lists, bf16=False):
+def assert_margins(ref_params_path, *seq_lists, bf16=False, length=LEN,
+                   semantics="dense"):
     """No read near the decision boundary (see module docstring): JAX-scan
     margin >= 1e-4 in fp32, >= 0.25 in bf16 (the bf16 scans of the two
-    packages differ by up to 0.066, test_torch_bilstm.py)."""
+    packages differ by up to 0.066, test_torch_bilstm.py), with the reads
+    encoded at -l `length` under `semantics`."""
     params = load_params(ref_params_path)
-    kw = {}
+    kw = {"semantics": semantics}
     if bf16:
-        kw = {"compute_dtype": jnp.bfloat16, "precision": jax.lax.Precision.DEFAULT}
+        kw.update(compute_dtype=jnp.bfloat16, precision=jax.lax.Precision.DEFAULT)
     for seqs in seq_lists:
-        tok, _ = encode_batch(seqs, LEN)
-        logits = np.asarray(bilstm_logits(params, jnp.asarray(tok), **kw))
+        tok, lengths = encode_batch(seqs, length)
+        logits = np.asarray(bilstm_logits(params, jnp.asarray(tok),
+                                          jnp.asarray(lengths), **kw))
         assert np.abs(logits[:, 1] - logits[:, 0]).min() >= (0.25 if bf16 else MARGIN)
 
 

@@ -136,7 +136,7 @@ def test_custom_width_predictor_on_card(tmp_path):
     p.load_model()
     assert p.kernel == "plain" and p.device.type == "cuda"
     assert resolved_kernel(p)["kernel"] == "plain"
-    assert not any(lstm_cuda.LAUNCHES.values())
+    assert not lstm_cuda.LAUNCH_COUNTS
     cfg["runtime"]["kernel"] = "cuda"
     with pytest.raises(ValueError, match="hidden width 128 only"):
         Predictor(ConfigParser(cfg), args, device="cuda").load_model()

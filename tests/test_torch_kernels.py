@@ -108,7 +108,7 @@ def test_plain_matches_pallas(params, batch, mode, matmul, k_block, semantics, k
             semantics=semantics, bwd_init=tinit).numpy()
     _assert_close(got, ref)
     # a CPU tensor takes the plain version: no kernel launch is counted
-    assert lstm_cuda.LAUNCHES == {m: 0 for m in lstm_cuda.MODES}
+    assert not lstm_cuda.LAUNCH_COUNTS
 
 
 def _random_arrays(seed):
@@ -151,7 +151,7 @@ def _fast_pair(jp, tp, tok, lengths, semantics, k, bf16):
         semantics=semantics, mode="fast_bf16" if bf16 else "fast",
         bwd_init=tinit).numpy()
     # a CPU tensor takes the plain version: no kernel launch is counted
-    assert lstm_cuda.LAUNCHES == {m: 0 for m in lstm_cuda.MODES}
+    assert not lstm_cuda.LAUNCH_COUNTS
     assert got.shape == ref.shape == (B, 2) and np.isfinite(got).all()
     return got, ref
 
@@ -239,24 +239,27 @@ def one_thread():
 @pytest.mark.parametrize("mode", ["fast", "fast_bf16"])
 def test_fast_gate_holds_a_summation_order(params, mode, one_thread):
     """TC_GATE against what a change of summation order alone does: the
-    plain version with its recurrent product summed in 16-wide k blocks
-    (the mma's k-step) stays inside the gate around the plain version as
-    it is (npz weights, T = 100), and the gate's mean-abs lies well under
-    the plain version's distance to exact, where a wrong rounding, gate or
-    token would show."""
+    plain version with its recurrent product summed in 8-wide k blocks
+    stays inside the gate around the plain version as it is, stated
+    against the yardstick (16-wide blocks, the mma's k-step) on the same
+    reads (npz weights, T = 100; 512 of them), and the gate's mean-abs
+    limit lies well under the plain version's distance to exact, where a
+    wrong rounding, gate or token would show."""
     _, tp = params
     tok = torch.from_numpy(_random_token_reads(np.random.default_rng(23), 2048, 100))
     dt = torch.bfloat16 if mode == "fast_bf16" else torch.float32
     plain = lstm_cuda.bilstm_logits_fast_plain(tp, tok, state_dtype=dt).numpy()
     blocked = lstm_cuda.bilstm_logits_fast_plain(tp, tok, state_dtype=dt,
                                                  k_block=16).numpy()
+    other = lstm_cuda.bilstm_logits_fast_plain(tp, tok[:512], state_dtype=dt,
+                                               k_block=8).numpy()
     exact = tb.bilstm_logits(tp, tok).numpy()
-    r = lstm_cuda.tc_gate(mode, blocked, plain, blocked)
+    r = lstm_cuda.tc_gate(mode, other, plain[:512], blocked[:512])
     assert r["max_abs"] > 0 and r["within_gate"], r
-    assert np.abs(plain - exact).mean() >= 2 * lstm_cuda.TC_GATE[mode]["mean_abs"]
+    assert np.abs(plain - exact).mean() >= 2 * r["mean_abs_limit"]
 
 
-def _faulty_fast_plain(tp, tokens, mode, fault):
+def _faulty_fast_plain(tp, tokens, mode, fault, bwd_init=None):
     """bilstm_logits_fast_plain with one planted fault (None: none), as a
     kernel might get one wrong: a rounding left out, the token row of the
     next step, or two gates swapped."""
@@ -294,8 +297,10 @@ def _faulty_fast_plain(tp, tokens, mode, fault):
 
     if fault == "next_token_row":
         tokens = tokens.roll(-1, dims=1)
+    if bf16 and bwd_init is not None:
+        bwd_init = tuple(r(x.to(torch.float32)) for x in bwd_init)
     last_out = tb.bilstm_last_out(tp, tokens, None, semantics="dense",
-                                  bwd_init=None, cell=cell)
+                                  bwd_init=bwd_init, cell=cell)
     return lstm_cuda.head_default(tp, last_out).numpy()
 
 
@@ -337,25 +342,27 @@ def test_fast_gate_rejects_a_planted_fault(params, fault_reads, mode, fault,
     plain, yard = ref[mode]
     r = lstm_cuda.tc_gate(mode, _faulty_fast_plain(tp, tok, mode, fault), plain, yard)
     assert not r["within_gate"], r
-    assert r["mean_abs"] > lstm_cuda.TC_GATE[mode]["mean_abs"], r
+    assert r["mean_abs"] > r["mean_abs_limit"], r
 
 
 def test_high_gate_holds_a_summation_order(params, one_thread):
     """TC_GATE["high"] against what a change of summation order alone does:
-    the plain high version with its three products summed in 16-wide k
-    blocks (the kernel's mma k-step, its yardstick) stays inside the gate
-    around the plain version as it is (npz weights, T = 100). Measured on
-    these reads: mean-abs ~8e-6, max-abs ~6e-5 -- the limb split's chaos
-    floor, which an order change cannot go under."""
+    the plain high version with its three products summed in 8-wide k
+    blocks stays inside the gate around the plain version as it is, stated
+    against the yardstick (16-wide blocks, the kernel's mma k-step) on the
+    same reads (npz weights, T = 100; 512 of them). Measured on these
+    reads: mean-abs ~8e-6, max-abs ~6e-5 -- the limb split's chaos floor,
+    which an order change cannot go under."""
     _, tp = params
     tok = torch.from_numpy(_random_token_reads(np.random.default_rng(31), 2048, 100))
     plain = lstm_cuda.bilstm_logits_high_plain(tp, tok).numpy()
     blocked = lstm_cuda.bilstm_logits_high_plain(tp, tok, k_block=16).numpy()
-    r = lstm_cuda.tc_gate("high", blocked, plain, blocked)
+    other = lstm_cuda.bilstm_logits_high_plain(tp, tok[:512], k_block=8).numpy()
+    r = lstm_cuda.tc_gate("high", other, plain[:512], blocked[:512])
     assert r["max_abs"] > 0 and r["within_gate"], r
 
 
-def _faulty_high_plain(tp, tokens, fault, k_block=16):
+def _faulty_high_plain(tp, tokens, fault, k_block=16, bwd_init=None):
     """bilstm_logits_high_plain with one planted fault (None: none), summed
     in 16-wide k blocks as a kernel sums: a limb product dropped, hlo left
     unrounded, the exp form of the sigmoid, a bf16-rounded token row, the
@@ -388,7 +395,7 @@ def _faulty_high_plain(tp, tokens, fault, k_block=16):
     if fault == "next_token_row":
         tokens = tokens.roll(-1, dims=1)
     last_out = tb.bilstm_last_out(tp, tokens, None, semantics="dense",
-                                  bwd_init=None, cell=cell)
+                                  bwd_init=bwd_init, cell=cell)
     return tb.head(tp, last_out).numpy()
 
 
@@ -442,7 +449,8 @@ def test_high_gate_rejects_a_planted_fault(params, high_fault_reads, fault,
     """The high kernel's two checks against a plain version with one op
     wrong: each fault falls outside TC_GATE["high"] (by its mean-abs: a
     dropped limb product or a bf16 token row reads 4.6e-3 to 7.7e-3 against
-    the gate's 5e-5) or breaks bit identity with W_hh = 0, which a right
+    a limit of ~2.4e-5, 3x the order's) or breaks bit identity with W_hh =
+    0, which a right
     kernel keeps; the table HIGH_FAULTS says which, and the test holds both
     to it."""
     _, tp = params
@@ -450,7 +458,7 @@ def test_high_gate_rejects_a_planted_fault(params, high_fault_reads, fault,
     tolerance_sees, zero_sees = HIGH_FAULTS[fault]
     assert r["within_gate"] is not tolerance_sees, r
     if tolerance_sees:
-        assert r["mean_abs"] > lstm_cuda.TC_GATE["high"]["mean_abs"], r
+        assert r["mean_abs"] > r["mean_abs_limit"], r
     assert same0 is not zero_sees
 
 
@@ -467,17 +475,99 @@ def test_high_gate_cannot_see_hlo_rounding(params, high_fault_reads, one_thread)
     assert same0
 
 
+@pytest.fixture(scope="module")
+def fault_reads_t300(params):
+    """Reads at T = 300 with the 44-step backward init (the -l 300 grid's
+    256 bucket), each tensor-core mode's init, plain and yardstick logits;
+    the fault-free copies of the plain versions are checked against the
+    real ones bit for bit with the init."""
+    _, tp = params
+    tok = torch.from_numpy(_random_token_reads(np.random.default_rng(41), 256, 300))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = {}
+        for mode in ("fast", "fast_bf16"):
+            dt = torch.bfloat16 if mode == "fast_bf16" else torch.float32
+            init = tb.zero_prefix_state(tp, 44, compute_dtype=dt)
+            plain = lstm_cuda.bilstm_logits_fast_plain(
+                tp, tok, state_dtype=dt, bwd_init=init).numpy()
+            np.testing.assert_array_equal(
+                _faulty_fast_plain(tp, tok, mode, None, bwd_init=init), plain)
+            ref[mode] = (init, plain, lstm_cuda.bilstm_logits_fast_plain(
+                tp, tok, state_dtype=dt, bwd_init=init, k_block=16).numpy())
+        init = tb.zero_prefix_state(tp, 44)
+        yard = lstm_cuda.bilstm_logits_high_plain(tp, tok, bwd_init=init,
+                                                  k_block=16).numpy()
+        np.testing.assert_array_equal(
+            _faulty_high_plain(tp, tok, None, bwd_init=init), yard)
+        ref["high"] = (init, lstm_cuda.bilstm_logits_high_plain(
+            tp, tok, bwd_init=init).numpy(), yard)
+    finally:
+        torch.set_num_threads(n)
+    return tok, ref
+
+
+# planted faults at T = 300 with the 44-step init -> whether TC_GATE sees
+# it there. What a change of summation order does grows with T faster than
+# what a rounding fault does: on these reads fast's unrounded token row
+# reads 14.7x the order's mean-abs at T = 100 and 3.5x at T = 300, fp32 h
+# in the product 9.1x and 2.1x, which the gate's 3x no longer sees. The
+# kernels run the same code at every T (T is the step loop's bound), and
+# the T = 64 and 100 settings, where it reads 9x, hold it; the zero-product
+# check, where the T = 300 settings hold them too, sees the token-row
+# faults but not this one. fast_bf16's rounding faults read 8.7-9.7x
+# there, high's limb and token faults 509x and more
+FAULTS_T300 = {
+    ("fast", "token_row_unrounded"): True, ("fast", "h_unrounded_in_product"): False,
+    ("fast_bf16", "token_row_unrounded"): True, ("fast_bf16", "gates_unrounded"): True,
+    ("fast_bf16", "ig_unrounded"): True, ("fast_bf16", "h_unrounded"): True,
+    ("high", "whi_hlo_dropped"): True, ("high", "wlo_hhi_dropped"): True,
+    ("high", "token_row_bf16"): True,
+}
+
+
+@pytest.mark.parametrize("mode,fault", list(FAULTS_T300))
+def test_gate_at_t300_against_a_planted_fault(params, fault_reads_t300, mode, fault,
+                                              one_thread):
+    """TC_GATE at T = 300 with the 44-step init against the plain version
+    with one rounding, limb or token-row fault planted: each fault the
+    table says the gate sees falls outside it by its mean-abs, and fast's
+    fp32 h in the product lies inside it there (FAULTS_T300)."""
+    _, tp = params
+    tok, ref = fault_reads_t300
+    init, plain, yard = ref[mode]
+    if mode == "high":
+        got = _faulty_high_plain(tp, tok, fault, bwd_init=init)
+    else:
+        got = _faulty_fast_plain(tp, tok, mode, fault, bwd_init=init)
+    r = lstm_cuda.tc_gate(mode, got, plain, yard)
+    sees = FAULTS_T300[mode, fault]
+    assert r["within_gate"] is not sees, r
+    assert (r["mean_abs"] > r["mean_abs_limit"]) is sees, r
+
+
 @pytest.mark.parametrize("mode", ["high", "fast", "fast_bf16"])
 def test_zero_product_weights_make_the_order_irrelevant(params, mode, one_thread):
     """With W_hh = 0 the plain version summed in 16-wide k blocks equals
-    the one summed k ascending, bit for bit (on the npz weights they
-    differ): the product is exactly zero in any order, so the tensor-core
-    kernels must match their plain versions bit for bit there."""
+    the one summed k ascending, bit for bit, dense and packed, with and
+    without a backward init (on the npz weights they differ): the product
+    is exactly zero in any order, so the tensor-core kernels must match
+    their plain versions bit for bit there (chip_smoke.py holds them to
+    the blocked form, the cheaper one)."""
     _, tp = params
-    tok = torch.from_numpy(_random_token_reads(np.random.default_rng(41), 256, 100))
+    rng = np.random.default_rng(41)
+    tok = torch.from_numpy(_random_token_reads(rng, 256, 100))
     p0 = lstm_cuda.zero_product_params(tp)
     np.testing.assert_array_equal(lstm_cuda.YARDSTICK[mode](p0, tok).numpy(),
                                   lstm_cuda.PLAIN[mode](p0, tok).numpy())
+    lens = torch.from_numpy(rng.integers(0, 102, 256).astype(np.int32))
+    init = tb.zero_prefix_state(
+        tp, 44, compute_dtype=torch.bfloat16 if mode == "fast_bf16" else torch.float32)
+    for kw in (dict(semantics="packed"), dict(semantics="dense", bwd_init=init)):
+        np.testing.assert_array_equal(
+            lstm_cuda.YARDSTICK[mode](p0, tok, lens, **kw).numpy(),
+            lstm_cuda.PLAIN[mode](p0, tok, lens, **kw).numpy())
     assert not np.array_equal(lstm_cuda.YARDSTICK[mode](tp, tok).numpy(),
                               lstm_cuda.PLAIN[mode](tp, tok).numpy())
 
@@ -585,8 +675,21 @@ def cuda_params(ref_params_path):
 @pytest.mark.parametrize("semantics,k", [("dense", None), ("packed", None),
                                          ("dense", 36)])
 def test_kernel_matches_plain_on_card(cuda_params, mode, semantics, k):
+    _check_kernel_on_card(cuda_params, mode, semantics, k, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", lstm_cuda.MODES)
+@pytest.mark.parametrize("semantics,k", [("dense", 44), ("packed", None)])
+def test_kernel_matches_plain_at_t300_on_card(cuda_params, mode, semantics, k):
+    """The -l 300 grid's full bucket: T = 300 dense with the 44-step
+    backward init that the 256 bucket's reads start from, and packed."""
+    _check_kernel_on_card(cuda_params, mode, semantics, k, 300)
+
+
+def _check_kernel_on_card(cuda_params, mode, semantics, k, Tc):
     rng = np.random.default_rng(9)
-    Bc, Tc = 2048 + 37, 64
+    Bc = 2048 + 37
     tok = torch.from_numpy(rng.integers(0, 5, (Bc, Tc)).astype(np.uint8)).cuda()
     lens = torch.from_numpy(rng.integers(0, Tc + 2, Bc).astype(np.int32)).cuda()
     init = None
@@ -598,7 +701,7 @@ def test_kernel_matches_plain_on_card(cuda_params, mode, semantics, k):
     got = lstm_cuda.bilstm_logits_cuda(cuda_params, tok, lens, semantics=semantics,
                                        mode=mode, bwd_init=init)
     torch.cuda.synchronize()
-    assert lstm_cuda.LAUNCHES[mode] == 1
+    assert lstm_cuda.LAUNCH_COUNTS == {(tok.device.index, mode, Tc): 1}
     ref = plain(cuda_params, tok, lens, semantics=semantics, bwd_init=init)
     got, ref = got.cpu().numpy(), ref.cpu().numpy()
     if mode not in lstm_cuda.TC_GATE:
