@@ -71,10 +71,20 @@ Phases, one JSON line each; any failure exits non-zero:
             weights start at chance there, the train loss falls, best.npz
             reaches val acc > 0.8, and the eval steps launch exact once an
             epoch and no other kernel; the same from a random init
-            (init_params, seed 0) at -l 40 over 3 epochs; train steps/s
-            and reads/s, the card's kernels per step (a torch.profiler
-            trace) and eval reads/s (over the validation set in one
-            launch, and over 65536 reads in 16); one batch's gradients
+            (init_params, seed 0) at -l 40 over 3 epochs; each CLI run's
+            train steps (trainer.step_counts: one capture for its one
+            shape, a replay for each optimizer update, epochs x whole
+            batches of them, the graph released when fit returned);
+            the graphed step (the CLI's) and the eager one side by side
+            from the same weights over the same 22 batches: steps/s and
+            reads/s over the last 20, their per-step losses and params
+            bit for bit, and for one step of each (a torch.profiler
+            trace) the card's kernels and their summed time, and the
+            host's kernel and graph launches; the same two steps over 6
+            batches packed, in bf16 compute, at T = 40 and at hidden 64,
+            bit for bit, one capture each; eval reads/s (over the
+            validation set in one launch, and over 65536 reads in 16);
+            one batch's gradients
             on the card against the CPU (max-abs <= 1e-4 relative);
             best.npz through detect on the card over 2 x 16384 pairs
             (probe + high, against plain exact labels); and --hidden 64 (1
@@ -91,9 +101,11 @@ Phases, one JSON line each; any failure exits non-zero:
             phase's files (-l 100, batch 200): the CLI's mesh lines, the
             losses and best.npz against the train phase's one-process run
             (losses 1e-4 relative, parameters within lr), exact launched
-            once an epoch on every rank and nothing else, best.npz through
-            detect (probe + high, against plain exact labels), and each
-            rank's step time, steps/s and train reads/s beside the total
+            once an epoch on every rank and nothing else, every rank's
+            train steps (at tp = 1 graphed: one capture, a replay for each
+            update; at tp > 1 eager), best.npz through detect (probe +
+            high, against plain exact labels), and each rank's step time,
+            steps/s and train reads/s beside the total
   serve     the JSONL job server (serve.main, --precision fast,
             --concurrency 2) over a 2 x 262144-read paired gz job, the same
             job again (memo reuse), a malformed line, a single-end job of
@@ -1169,71 +1181,213 @@ def labeled_fasta(tmp, rng, max_len=100):
     return paths, sets[0], sets[1]
 
 
+def counting_updates():
+    """A list whose one element counts every optimizer update in the
+    process (torch.optim's global post-step hook), and the hook's handle."""
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    updates = [0]
+
+    def hook(*_):
+        updates[0] += 1
+
+    return updates, register_optimizer_step_post_hook(hook)
+
+
 def train_cli(paths, out, extra, max_len=100):
     """The training CLI on the current card (main's path with one card
     visible; with several, main spawns a worker per card, which the
-    train_dist phase drives) -> (wall s, launches per kernel)."""
+    train_dist phase drives) -> (wall s, launches per kernel, train steps:
+    trainer.step_counts() with the optimizer's updates and the bytes the
+    run left allocated on the card)."""
     import torch
 
     from ribodetector_tpu_torch.ops import lstm_cuda
+    from ribodetector_tpu_torch.train import trainer
     from ribodetector_tpu_torch.train.__main__ import _train
 
     lstm_cuda.reset_launches()
-    t0 = time.perf_counter()
-    _train(["--rrna", paths["rrna"], "--norrna", paths["norrna"], "-l", str(max_len),
-            "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR), "--out", out, *extra], "cuda")
+    trainer.reset_step_counts()
+    updates, hook = counting_updates()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, lstm_cuda.launches()
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        _train(["--rrna", paths["rrna"], "--norrna", paths["norrna"], "-l", str(max_len),
+                "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR), "--out", out, *extra],
+               "cuda")
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    steps = {**trainer.step_counts(), "updates": updates[0],
+             "left_allocated_bytes": torch.cuda.memory_allocated() - allocated}
+    return wall, lstm_cuda.launches(), steps
 
 
-def step_rates(params, data, val):
-    """Train steps/s at batch TRAIN_BATCH (20 steps after 2 warm-ups, on a
-    copy of params), the card's kernels in one step (a torch.profiler
-    trace), and eval reads/s over the validation set (2 x VAL_READS: one
-    launch of exact, latency-bound) and over it repeated to EVAL_READS
-    (a user's validation set: EVAL_READS / 4096 launches); host clock
-    around work that ends in a synchronize."""
+def check_steps(tag, steps, want, graphed=True):
+    """A run's train steps: graphed, one capture (its one shape), a replay
+    for each of the `want` updates and the graph released when fit
+    returned; or eager, a step for each update and no capture."""
+    if graphed:
+        ok = (steps["captures"] == 1 and steps["replays"] == steps["updates"] == want
+              and steps["eager"] == 0 and steps["released"] == 1)
+    else:
+        ok = (steps["captures"] == steps["replays"] == 0
+              and steps["eager"] == steps["updates"] == want)
+    check(ok, f"{tag}: train steps {steps}, not {'one capture and' if graphed else 'eager,'} "
+              f"{want} updates")
+
+
+def profile_step(step):
+    """One train step under torch.profiler: the card's kernels (count and
+    summed device ms), the host's kernel launches (the runtime's launch
+    calls) and its graph launches."""
     import torch
-
-    from ribodetector_tpu_torch.models.bilstm import BiLSTM
-    from ribodetector_tpu_torch.train.trainer import (
-        TrainConfig, evaluate, make_eval_step, make_optimizer, make_train_step)
-
-    cfg = TrainConfig(learning_rate=TRAIN_LR)
-    model = BiLSTM(params)
-    step = make_train_step(cfg, make_optimizer(cfg, model.parameters()))
-    dev = params.w_hh_f.device
-    tok, lengths, labels = (torch.from_numpy(np.ascontiguousarray(x[:TRAIN_BATCH])).to(dev)
-                            for x in data)
-    labels = labels.long()
-    for _ in range(2):
-        step(model.params(), tok, lengths, labels)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        step(model.params(), tok, lengths, labels)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / 20
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(model.params(), tok, lengths, labels)
+        step()
         torch.cuda.synchronize()
-    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(kernels > 0, "the profiler recorded no kernel on the card in a train step")
-    eval_step = make_eval_step(cfg)
-    rates = {"train_step_ms": 1e3 * step_s, "train_steps_per_s": 1 / step_s,
-             "train_reads_per_s": TRAIN_BATCH / step_s, "device_kernels_per_step": kernels}
-    big = tuple(np.tile(x, (EVAL_READS // len(val[2]),) + (1,) * (x.ndim - 1)) for x in val)
-    for name, reads in (("eval_reads_per_s_one_launch", val), ("eval_reads_per_s", big)):
-        evaluate(eval_step, model.params(), reads)
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda]
+    host = [e.name for e in events if e.device_type != cuda]
+    return {"device_kernels": len(kernels),
+            "device_kernel_ms": sum(e.device_time for e in kernels) / 1e3,
+            "host_kernel_launches": sum(n.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                                        for n in host),
+            "host_graph_launches": host.count("cudaGraphLaunch")}
+
+
+def side_by_side(tag, init, cfg, batch, steps, profile=False):
+    """The eager train step and the graphed one (the CLI's), each from its
+    own copy of `init` over the same `steps` batches (rows i * TRAIN_BATCH
+    onward of the device tensors `batch`), the steps after the first 2
+    timed (host clock around work that ends in a synchronize); with
+    profile, one more step of each under torch.profiler. Checks their
+    per-step losses and params bit for bit, and that the graphed step
+    captured once and replayed every step -> {kind: {"step_ms", "steps"
+    (trainer.step_counts()), and profile_step's keys}}."""
+    import torch
+
+    from ribodetector_tpu_torch.models.bilstm import BiLSTM
+    from ribodetector_tpu_torch.train import trainer
+
+    dev = init.w_hh_f.device
+    rows = [torch.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH, device=dev)
+            for i in range(steps + 1)]
+    out, runs = {}, {}
+    for kind, graph in (("eager", False), ("graphed", None)):
+        model = BiLSTM(init)
+        step = trainer.make_train_step(cfg, trainer.make_optimizer(cfg, model.parameters()),
+                                       graph=graph)
+        trainer.reset_step_counts()
+
+        def one(i):
+            return step(model.params(), *batch, rows[i])
+
+        losses = [one(i) for i in range(2)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        evaluate(eval_step, model.params(), reads)
+        losses += [one(i) for i in range(2, steps)]
+        torch.cuda.synchronize()
+        out[kind] = {"step_ms": 1e3 * (time.perf_counter() - t0) / (steps - 2),
+                     "steps": trainer.step_counts()}
+        runs[kind] = (torch.stack(losses).cpu(), [p.detach().cpu() for p in model.params()])
+        if profile:
+            out[kind].update(profile_step(lambda: one(steps)))
+        step.release()
+    (el, ep), (gl, gp) = runs["eager"], runs["graphed"]
+    check(torch.equal(gl, el) and all(torch.equal(a, b) for a, b in zip(gp, ep)),
+          f"{tag}: the graphed and the eager step differ: losses {gl.tolist()} against "
+          f"{el.tolist()}, params max-abs "
+          f"{max(float((a - b).abs().max()) for a, b in zip(gp, ep))}")
+    check(out["graphed"]["steps"] == {"captures": 1, "replays": steps, "eager": 0,
+                                      "released": 0}
+          and out["eager"]["steps"]["eager"] == steps,
+          f"{tag}: the side-by-side steps ran as {out}")
+    return out
+
+
+STEP_BATCHES = 22  # 2 warm-up steps (the graph's first captures) + 20 timed
+
+
+def step_rates(params, data, val):
+    """The graphed train step (the CLI's) and the eager one side by side at
+    batch TRAIN_BATCH over STEP_BATCHES batches (side_by_side: bit for
+    bit; steps/s and reads/s over the last 20; the card's kernels and
+    their summed time, and the host's kernel and graph launches, in one
+    more step of each). Then eval reads/s over the validation set (2 x
+    VAL_READS: one launch of exact, latency-bound) and over it repeated to
+    EVAL_READS (a user's validation set: EVAL_READS / 4096 launches)."""
+    import torch
+
+    from ribodetector_tpu_torch.train.trainer import TrainConfig, evaluate, make_eval_step
+
+    cfg = TrainConfig(learning_rate=TRAIN_LR)
+    dev = params.w_hh_f.device
+    tok, lengths, labels = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in data)
+    runs = side_by_side("batch 200, T = 100", params, cfg, (tok, lengths, labels.long()),
+                        STEP_BATCHES, profile=True)
+    rates = {}
+    for kind, prefix in (("graphed", ""), ("eager", "eager_")):
+        r = runs[kind]
+        check(r["device_kernels"] > 0,
+              f"the profiler recorded no kernel on the card in a {kind} train step")
+        rates.update({f"{prefix}train_step_ms": r["step_ms"],
+                      f"{prefix}train_steps_per_s": 1e3 / r["step_ms"],
+                      f"{prefix}train_reads_per_s": 1e3 * TRAIN_BATCH / r["step_ms"],
+                      f"{prefix}device_kernels_per_step": r["device_kernels"],
+                      f"{prefix}device_kernel_ms_per_step": r["device_kernel_ms"],
+                      f"{prefix}device_busy_share": r["device_kernel_ms"] / r["step_ms"],
+                      f"{prefix}host_kernel_launches_per_step": r["host_kernel_launches"],
+                      f"{prefix}host_graph_launches_per_step": r["host_graph_launches"],
+                      f"{kind}_step_counts": r["steps"]})
+    check(rates["host_graph_launches_per_step"] == 1 and rates["host_kernel_launches_per_step"]
+          < rates["eager_host_kernel_launches_per_step"] / 100,
+          f"the graphed step did not go out as one graph launch: {rates}")
+    eval_step = make_eval_step(cfg)
+    big = tuple(np.tile(x, (EVAL_READS // len(val[2]),) + (1,) * (x.ndim - 1)) for x in val)
+    for name, reads in (("eval_reads_per_s_one_launch", val), ("eval_reads_per_s", big)):
+        evaluate(eval_step, params, reads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(eval_step, params, reads)
         torch.cuda.synchronize()
         rates[name] = len(reads[2]) / (time.perf_counter() - t0)
     rates["eval_reads"] = len(big[2])
     return rates
+
+
+# the graphed step's other shapes and settings, against the eager step:
+# (name, TrainConfig fields, T, hidden: None for the given weights)
+GRAPH_SETTINGS = (("packed", {"semantics": "packed"}, 100, None),
+                  ("bfloat16", {"compute_dtype": "bfloat16"}, 100, None),
+                  ("T40", {}, 40, None),
+                  ("hidden64_random_init", {}, 100, 64))
+
+
+def graph_settings(params, data, steps=6):
+    """side_by_side for each GRAPH_SETTINGS entry over `steps` batches of
+    `data` cut to T (tokens past T dropped, lengths clamped) -> {name:
+    each step's ms (the last steps - 2)}."""
+    import torch
+
+    from ribodetector_tpu_torch.models.bilstm import init_params
+    from ribodetector_tpu_torch.train.trainer import TrainConfig
+
+    dev = params.w_hh_f.device
+    tok, lengths, labels = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in data)
+    out = {}
+    for name, fields, T, hidden in GRAPH_SETTINGS:
+        init = params if hidden is None else init_params(
+            torch.Generator().manual_seed(0), hidden=hidden, device=dev)
+        batch = (tok[:, :T].contiguous(), lengths.clamp(max=T), labels.long())
+        runs = side_by_side(name, init, TrainConfig(learning_rate=TRAIN_LR, **fields), batch,
+                            steps)
+        out[name] = {f"{kind}_step_ms": runs[kind]["step_ms"] for kind in runs}
+    return out
 
 
 def grad_gap(params, data):
@@ -1308,7 +1462,7 @@ def phase_train(tmp):
     # the shipped weights onto the motif task
     init_acc = evaluate(make_eval_step(TrainConfig()), load_params(NPZ, "cuda"), val)["acc"]
     out = os.path.join(tmp, "train128")
-    wall, launches = train_cli(
+    wall, launches, steps = train_cli(
         {"rrna": paths["train_rrna"], "norrna": paths["train_norrna"]}, out,
         ["--val-rrna", paths["val_rrna"], "--val-norrna", paths["val_norrna"],
          "--epochs", str(TRAIN_EPOCHS), "--init", NPZ])
@@ -1317,11 +1471,13 @@ def phase_train(tmp):
     best = load_params_meta(best_npz)
     params = load_params(best_npz, "cuda")
     rates = step_rates(params, data, val)
+    rates["graph_settings"] = graph_settings(params, data)
     emit("train", run="hidden128", reads=2 * TRAIN_READS, val_reads=2 * VAL_READS,
          epochs=TRAIN_EPOCHS, batch=TRAIN_BATCH, lr=TRAIN_LR, init="shipped weights",
          val_acc_before=init_acc, wall_s=wall, data_gen_s=gen_s,
          epoch_train_loss=losses, best_epoch=best["epoch"],
-         best_metrics=best["metrics"], launches=launches, **rates)
+         best_metrics=best["metrics"], launches=launches, steps=steps, **rates)
+    check_steps("-l 100", steps, TRAIN_EPOCHS * (2 * TRAIN_READS // TRAIN_BATCH))
     check(init_acc < 0.6, f"the shipped weights already reach val acc {init_acc}")
     check(losses[-1] < losses[0], f"the train loss did not fall: {losses}")
     check(best["metrics"]["acc"] > 0.8, f"best.npz val acc {best['metrics']['acc']} <= 0.8")
@@ -1333,7 +1489,7 @@ def phase_train(tmp):
     # the task is learned within a few epochs
     paths40, _, _ = labeled_fasta(tmp, np.random.default_rng(17), 40)
     out40 = os.path.join(tmp, "train128_l40")
-    wall40, launches40 = train_cli(
+    wall40, launches40, steps40 = train_cli(
         {"rrna": paths40["train_rrna"], "norrna": paths40["train_norrna"]}, out40,
         ["--val-rrna", paths40["val_rrna"], "--val-norrna", paths40["val_norrna"],
          "--epochs", str(RANDOM_INIT_EPOCHS)], max_len=40)
@@ -1342,7 +1498,9 @@ def phase_train(tmp):
     emit("train", run="hidden128_random_init_l40", reads=2 * TRAIN_READS,
          val_reads=2 * VAL_READS, epochs=RANDOM_INIT_EPOCHS, batch=TRAIN_BATCH, lr=TRAIN_LR,
          init="init_params, seed 0", wall_s=wall40, epoch_train_loss=losses40,
-         best_epoch=best40["epoch"], best_metrics=best40["metrics"], launches=launches40)
+         best_epoch=best40["epoch"], best_metrics=best40["metrics"], launches=launches40,
+         steps=steps40)
+    check_steps("-l 40", steps40, RANDOM_INIT_EPOCHS * (2 * TRAIN_READS // TRAIN_BATCH))
     check(losses40[-1] < losses40[0], f"-l 40: the train loss did not fall: {losses40}")
     check(best40["metrics"]["acc"] > 0.8,
           f"-l 40 from a random init: best.npz val acc {best40['metrics']['acc']} <= 0.8")
@@ -1378,7 +1536,7 @@ def phase_train(tmp):
     # (d) a custom width: --hidden 64, one epoch of 2 x 2048 reads, then
     # detect on the card with the plain recurrence
     out64 = os.path.join(tmp, "train64")
-    wall64, launches64 = train_cli(
+    wall64, launches64, steps64 = train_cli(
         {"rrna": paths["small_rrna"], "norrna": paths["small_norrna"]}, out64,
         ["--hidden", "64", "--epochs", "1"])
     npz64 = os.path.join(out64, "best.npz")
@@ -1395,10 +1553,11 @@ def phase_train(tmp):
     kernel = resolved_kernel(pred)["kernel"]
     new_markers = (set(os.listdir(marker_dir)) if os.path.isdir(marker_dir) else set()) - markers
     emit("train", run="hidden64", reads=2 * 2048, epochs=1, wall_s=wall64,
-         launches=launches64, detect_wall_s=dwall, detect_launches=dl, kernel=kernel,
-         pairs=n, mismatches=int(bad.sum()),
+         launches=launches64, steps=steps64, detect_wall_s=dwall, detect_launches=dl,
+         kernel=kernel, pairs=n, mismatches=int(bad.sum()),
          mismatches_m5e_3=int(bad[margin >= 5e-3].sum()),
          counts={str(k): int((got == k).sum()) for k in (0, 1, -1)})
+    check_steps("--hidden 64", steps64, 2 * 2048 // TRAIN_BATCH)
     check(not any(launches64.values()) and not any(dl.values()),
           f"a kernel ran at hidden 64: train {launches64}, detect {dl}")
     check(kernel == "plain" and pred.kernel == "plain", f"hidden 64 resolved to {kernel}")
@@ -1413,37 +1572,50 @@ def phase_train(tmp):
 DIST_EPOCHS = 1  # epochs of each train_dist run (epoch 0 of the train phase's run)
 # one rank of a multi-device training run: train.__main__.worker (what the
 # CLI's main spawns on each card), with each train step timed (synchronized
-# before and after) and the rank's kernel launches counted; its last stdout
-# line is a JSON object with those and the lines the CLI printed
+# before and after), the rank's kernel launches, train steps and optimizer
+# updates counted; its last stdout line is a JSON object with those and the
+# lines the CLI printed
 RANK_CHILD = """
 import contextlib, io, json, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
+from torch.optim.optimizer import register_optimizer_step_post_hook
 from ribodetector_tpu_torch.ops import lstm_cuda
 from ribodetector_tpu_torch.train import trainer
 from ribodetector_tpu_torch.train.__main__ import worker
 a, rank = json.loads(sys.argv[2]), int(sys.argv[3])
-steps, make = [], trainer.make_train_step
+steps, updates, make = [], [0], trainer.make_train_step
 
-def timed(*args, **kw):
-    step = make(*args, **kw)
 
-    def run(*x):
+class Timed:
+    def __init__(self, step):
+        self.step = step
+
+    def __call__(self, *x):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = step(*x)
+        loss = self.step(*x)
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
         return loss
-    return run
 
-trainer.make_train_step = timed
+    def release(self):
+        self.step.release()
+
+
+def count(*_):
+    updates[0] += 1
+
+
+trainer.make_train_step = lambda *args, **kw: Timed(make(*args, **kw))
+register_optimizer_step_post_hook(count)
 printed = io.StringIO()
 t0 = time.perf_counter()
 with contextlib.redirect_stdout(printed):
     worker(rank, a["world"], a["tp"], a["backend"], a["device"], a["argv"], a["init_method"])
 print(json.dumps({"rank": rank, "wall_s": time.perf_counter() - t0, "step_s": steps,
                   "launches": lstm_cuda.launches(),
+                  "steps": {**trainer.step_counts(), "updates": updates[0]},
                   "stdout": printed.getvalue().splitlines()}), flush=True)
 """
 
@@ -1462,12 +1634,15 @@ def dist_reference(tmp):
     rng = np.random.default_rng(17)
     paths, _, _ = labeled_fasta(tmp, rng)
     out = os.path.join(tmp, "train128")
-    wall, _ = train_cli({"rrna": paths["train_rrna"], "norrna": paths["train_norrna"]}, out,
-                        ["--val-rrna", paths["val_rrna"], "--val-norrna", paths["val_norrna"],
-                         "--epochs", str(DIST_EPOCHS), "--init", NPZ])
+    wall, _, steps = train_cli(
+        {"rrna": paths["train_rrna"], "norrna": paths["train_norrna"]}, out,
+        ["--val-rrna", paths["val_rrna"], "--val-norrna", paths["val_norrna"],
+         "--epochs", str(DIST_EPOCHS), "--init", NPZ])
     inputs, seqs = write_pairs(tmp, 16384, np.random.default_rng(23), prefix="trained",
                                motif=MOTIF)
-    emit("train_dist", run="one_process_reference", epochs=DIST_EPOCHS, wall_s=wall)
+    emit("train_dist", run="one_process_reference", epochs=DIST_EPOCHS, wall_s=wall,
+         steps=steps)
+    check_steps("one process", steps, DIST_EPOCHS * (2 * TRAIN_READS // TRAIN_BATCH))
     return {"paths": paths, "out": out, "inputs": inputs, "seqs": seqs, "step_ms": None}
 
 
@@ -1540,8 +1715,12 @@ def dist_run(tmp, ref, tag, world, tp, backend, device, smi):
         step_s = float(np.median(r["step_s"][1:]))
         ranks.append({"rank": r["rank"], "wall_s": r["wall_s"], "steps": len(r["step_s"]),
                       "step_ms": 1e3 * step_s, "steps_per_s": 1 / step_s,
+                      "first_step_ms": 1e3 * r["step_s"][0],
                       "train_reads_per_s": batch // mesh["dp"] / step_s,
-                      "launches": r["launches"]})
+                      "launches": r["launches"], "train_steps": r["steps"]})
+        # graphed at tp = 1 (the dp average after the replay), eager at tp > 1
+        check_steps(f"{tag} rank {r['rank']}", r["steps"],
+                    DIST_EPOCHS * (2 * TRAIN_READS // batch), graphed=mesh["tp"] == 1)
         check(r["launches"] == {**dict.fromkeys(r["launches"], 0), "exact": want_exact},
               f"{tag} rank {r['rank']}: the eval steps launched {r['launches']}, "
               f"not exact {want_exact} times alone")

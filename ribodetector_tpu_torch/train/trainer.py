@@ -25,6 +25,15 @@ collectives are explicit:
   buffer) and barrier only: gloo has no all_gather of CUDA tensors, and
   two ranks that share one card need gloo.
 
+The JAX trainer jits its step, so forward, backward and the update go out
+as one program a step. Here, on the card at tp = 1, the forward and the
+backward of each input shape are captured once as a CUDA graph over
+static input buffers and replayed every step (make_train_step): about
+8,800 small kernels a step at T = 100 go out as one graph launch. The
+update stays eager after the replay. On the CPU, and at tp > 1 (whose
+gloo collectives inside the recurrence cannot be captured), the step runs
+eagerly.
+
 Differences from the JAX trainer, by design:
 
 - an explicit ``device`` and ``grid`` take the place of the mesh;
@@ -38,6 +47,7 @@ arch/epoch/batch_size/metrics), and the npz artifacts are the JAX
 package's format.
 """
 
+import collections
 import os
 from dataclasses import dataclass
 
@@ -190,41 +200,217 @@ def _loss_fn(params, tokens, lengths, labels, semantics, compute_dtype, grid=Non
     return cross_entropy_loss(logits, labels), logits
 
 
-def _average_over_dp(leaves, grid):
-    """Each leaf's gradient averaged over the dp group, in one all_reduce."""
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
-    flat = torch.cat([g.reshape(-1) for g in grads])
+# Train steps by kind, counted as ops/lstm_cuda.LAUNCH_COUNTS counts kernel
+# launches: "captures" (a graph-ready step built for a new input shape),
+# "replays" (one a graph-ready step), "eager" (one an eager step) and
+# "released" (graph-ready steps freed; fit frees its own when it returns).
+STEP_COUNTS = collections.Counter()
+
+
+def step_counts():
+    return {k: STEP_COUNTS[k] for k in ("captures", "replays", "eager", "released")}
+
+
+def reset_step_counts():
+    STEP_COUNTS.clear()
+
+
+def _average_over_dp(flat, grid):
+    """The flat gradient buffer averaged over the dp group, in place: one
+    all_reduce."""
     dist.all_reduce(flat, group=grid.dp_group)
     flat /= grid.dp
-    offset = 0
-    for p, g in zip(leaves, grads):
-        p.grad = flat[offset: offset + g.numel()].view_as(g)
-        offset += g.numel()
 
 
-def make_train_step(cfg: TrainConfig, optimizer, grid=None):
-    """step(params, tokens, lengths, labels) -> loss (a detached scalar on
-    the params' device): one forward and backward of the plain recurrence
-    in cfg.compute_dtype, then one optimizer step, which updates the leaf
-    tensors of `params` (the ones `optimizer` holds) in place.
+def _views(flat, leaves):
+    """Each leaf's slice of the flat buffer, in the leaf's shape."""
+    return [v.view_as(p) for p, v in zip(leaves, flat.split([p.numel() for p in leaves]))]
+
+
+# device index -> the side stream every capture on that card warms up and
+# captures on: cuBLAS keeps a workspace for each stream it has run on, for
+# the life of the process, so one stream a card keeps that to one
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(index):
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+class _StaticStep:
+    """The graph-ready forward and backward at one input shape.
+
+    It owns static input buffers (the first batch, into which every later
+    batch is copied), one flat gradient buffer whose per-leaf views become
+    the leaves' .grad, and a static loss. `replay` runs the forward and
+    backward over the buffers and writes the gradients and the loss into
+    theirs: on the card a CUDA graph captured once (after one warm-up run
+    on the capture stream, which initializes what runs lazily on a first
+    call: cuBLAS's handle and workspace there, the allocator's blocks); on
+    the CPU, which has no graphs, the body itself. Neither updates the
+    parameters: the warm-up and the capture add no update.
+    """
+
+    def __init__(self, params, batch, loss_fn):
+        self.params, self.inputs, self.loss_fn = params, batch, loss_fn
+        dev = self.params[0].device
+        self.flat = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype,
+                                device=dev)
+        self.grads = _views(self.flat, self.params)
+        self.loss = torch.zeros((), dtype=torch.float32, device=dev)
+        self.graph = None
+        self.replay = self.body
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                self.replay = self._capture()
+        STEP_COUNTS["captures"] += 1
+
+    def body(self):
+        loss, _ = self.loss_fn(self.params, *self.inputs)
+        grads = torch.autograd.grad(loss, self.params)
+        torch.cat([g.reshape(-1) for g in grads], out=self.flat)
+        self.loss.copy_(loss.detach())
+
+    def _capture(self):
+        stream = _capture_stream(torch.cuda.current_device())
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self.body()
+        torch.cuda.current_stream().wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.body()
+        return self.graph.replay
+
+    def load(self, batch, rows):
+        """Copy the next batch into the input buffers (rows: of batch)."""
+        for buf, x in zip(self.inputs, batch):
+            if x is None:
+                continue
+            if rows is None:
+                buf.copy_(x)
+            else:
+                torch.index_select(x, 0, rows, out=buf)
+
+    def release(self):
+        if self.graph is not None:
+            self.graph.reset()
+        for p in self.params:
+            p.grad = None
+
+
+def step_kind(device, grid=None, graph=None):
+    """How make_train_step's step runs on `device`: "graph" or "eager".
+    graph=None: the graph-ready step on the card at tp = 1, the eager step
+    elsewhere (the CPU; tp > 1, whose collectives run inside the
+    recurrence over gloo, which a graph cannot capture); False: eager;
+    True: the graph-ready step on any device (on the CPU its body runs in
+    place of a replay), which tp > 1 refuses."""
+    tp = grid is not None and grid.tp > 1
+    if graph and tp:
+        raise ValueError("the train step at tp > 1 runs eagerly: its gloo "
+                         "collectives run inside the recurrence, which a CUDA "
+                         "graph cannot capture")
+    if graph is None:
+        return "graph" if torch.device(device).type == "cuda" and not tp else "eager"
+    return "graph" if graph else "eager"
+
+
+class TrainStep:
+    """step(params, tokens, lengths, labels, rows=None) -> loss; see
+    make_train_step. release() frees the captured graphs and their memory
+    (and unbinds the leaves' .grad from their buffers)."""
+
+    def __init__(self, cfg, optimizer, grid, graph):
+        self.cfg, self.optimizer, self.grid, self.want_graph = cfg, optimizer, grid, graph
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.dp = grid.dp if grid is not None else 1
+        step_kind("cpu", grid, graph)  # tp > 1 refuses graph=True up front
+        self.static = {}
+
+    def _loss(self, params, tokens, lengths, labels):
+        return _loss_fn(params, tokens, lengths, labels, self.cfg.semantics,
+                        self.compute_dtype, self.grid)
+
+    def __call__(self, params, tokens, lengths, labels, rows=None):
+        batch = (tokens, lengths, labels)
+        if step_kind(params[0].device, self.grid, self.want_graph) == "eager":
+            if rows is not None:
+                batch = tuple(None if x is None else x[rows] for x in batch)
+            return self._eager(params, *batch)
+        n = len(tokens) if rows is None else len(rows)
+        key = (tuple(map(id, params)), n,
+               *((None,) if x is None else (tuple(x.shape[1:]), x.dtype) for x in batch))
+        static = self.static.get(key)
+        if static is None:
+            first = tuple(None if x is None else x.clone() if rows is None else x[rows]
+                          for x in batch)
+            static = self.static[key] = _StaticStep(params, first, self._loss)
+        else:
+            static.load(batch, rows)
+        static.replay()
+        STEP_COUNTS["replays"] += 1
+        # the leaves' .grad are the buffer the replay writes, bound again
+        # each step: another shape's step, or zero_grad, may have rebound them
+        for p, g in zip(params, static.grads):
+            p.grad = g
+        if self.dp > 1:
+            _average_over_dp(static.flat, self.grid)
+        self.optimizer.step()
+        # a copy: the static loss is overwritten by the next replay
+        return static.loss.clone()
+
+    def _eager(self, params, tokens, lengths, labels):
+        STEP_COUNTS["eager"] += 1
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, _ = self._loss(params, tokens, lengths, labels)
+        loss.backward()
+        if self.dp > 1:
+            flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+                              for p in params])
+            _average_over_dp(flat, self.grid)
+            for p, g in zip(params, _views(flat, params)):
+                p.grad = g
+        self.optimizer.step()
+        return loss.detach()
+
+    def release(self):
+        for static in self.static.values():
+            static.release()
+        STEP_COUNTS["released"] += len(self.static)
+        self.static.clear()
+
+
+def make_train_step(cfg: TrainConfig, optimizer, grid=None, *, graph=None):
+    """step(params, tokens, lengths, labels, rows=None) -> loss (a detached
+    scalar on the params' device, a tensor of its own each step): one
+    forward and backward of the plain recurrence in cfg.compute_dtype, then
+    one optimizer step, which updates the leaf tensors of `params` (the
+    ones `optimizer` holds) in place. With rows (an index tensor), the
+    batch is those rows of tokens, lengths and labels (fit's
+    device-resident set), gathered straight into the step's input buffers.
+
+    On the card at tp = 1 the step is graph-ready (step_kind): for each
+    (params, batch, T, input dtypes) it first sees, it captures the forward
+    and the backward once as a CUDA graph over static input buffers (one
+    warm-up run first, which adds no update); every step copies its batch
+    into the buffers, replays the graph and runs the optimizer's update
+    eagerly after it (the same non-capturable torch.optim update as the
+    eager step, so the two steps give the same numbers). A failed capture
+    raises. On the CPU, and at tp > 1, the step runs eagerly. graph (an
+    internal argument): False runs the eager step anywhere (chip_smoke.py's
+    side-by-side check); True runs the graph-ready step on any device (on
+    the CPU its body stands in for the replay: the tests' view of the
+    card's step).
 
     With a grid, `params` is this rank's shard_params and the batch its dp
     rows: the forward runs tp_logits when tp > 1, the gradients are
-    averaged over the dp group before the update, and the loss returned
-    is the mean over this rank's rows."""
-    compute_dtype = getattr(torch, cfg.compute_dtype)
-
-    def step(params, tokens, lengths, labels):
-        optimizer.zero_grad(set_to_none=True)
-        loss, _ = _loss_fn(params, tokens, lengths, labels, cfg.semantics,
-                           compute_dtype, grid)
-        loss.backward()
-        if grid is not None and grid.dp > 1:
-            _average_over_dp(params, grid)
-        optimizer.step()
-        return loss.detach()
-
-    return step
+    averaged over the dp group before the update (one all_reduce of a flat
+    buffer, in place), and the loss returned is the mean over this rank's
+    rows."""
+    return TrainStep(cfg, optimizer, grid, graph)
 
 
 def make_eval_step(cfg: TrainConfig):
@@ -348,7 +534,11 @@ def fit(
     Trains a copy of `params` on `device` (default: the device of params)
     and returns the trained BiLSTMParams (detached). Each epoch takes the
     JAX trainer's batches: the permutation np.random.default_rng(epoch) of
-    the rows, in whole batches (the last fractional batch is dropped).
+    the rows, in whole batches (the last fractional batch is dropped),
+    each gathered on the device from the set put there once. On the card
+    the step is graph-ready (make_train_step): one capture per input
+    shape, a replay and an eager update per batch; its graphs are freed
+    when fit returns.
 
     grid: this process's parallel.mesh.Grid (make_grid) in a group of one
     process per device, every rank calling fit with the same arguments.
@@ -398,58 +588,61 @@ def fit(
     writer = grid is None or grid.rank == 0
     # the whole training set on the device once; batches are gathered there
     tokens_d, lengths_d, labels_d = _on(device, tokens, lengths, labels)
-    best = None
-    for epoch in range(epochs):
-        perm = torch.from_numpy(np.random.default_rng(epoch).permutation(n)).to(device)
-        losses = []
-        for start in range(0, n - batch_size + 1, batch_size):
-            idx = perm[start: start + batch_size]
-            if rows is not None:
-                idx = rows(idx, grid.dp_index)
-            losses.append(train_step(leaves, tokens_d[idx], lengths_d[idx],
-                                     labels_d[idx]))
-        losses = torch.stack(losses)
-        if grid is not None and grid.dp > 1:
-            # each step's loss over the whole batch: the mean of its dp parts
-            dist.all_reduce(losses, group=grid.dp_group)
-            losses /= grid.dp
-        # one host sync an epoch: the mean of the per-step losses
-        metrics = {"train_loss": float(losses.double().mean())}
-        msg = f"epoch {epoch}: loss {metrics['train_loss']:.4f}"
-        full = whole()
-        if eval_data is not None:
-            m = evaluate(eval_step, full, eval_data)
-            metrics.update(m)
-            msg += " " + " ".join(f"{k} {v:.4f}" for k, v in m.items())
-        log_fn(msg)
-        if checkpoint_dir is not None:
-            hidden = full.w_hh_f.shape[0]
-            meta = {
-                "arch": f"BiLSTM 4x{hidden}x2 bidirectional",
-                "epoch": epoch,
-                "batch_size": batch_size,
-                "metrics": metrics,
-            }
-            if writer:
-                os.makedirs(checkpoint_dir, exist_ok=True)
-                save_params(
-                    os.path.join(checkpoint_dir, f"epoch{epoch:03d}.npz"), full, meta
-                )
-            if monitor in metrics:
-                # loss-like monitors are minimized; everything else maximized
-                sign = -1.0 if "loss" in monitor else 1.0
-                score = sign * metrics[monitor]
-            else:
-                if eval_data is not None:
-                    raise ValueError(
-                        f"monitor={monitor!r} not in metrics {sorted(metrics)}"
-                    )
-                score = -metrics["train_loss"]
-            if best is None or score > best:
-                best = score
+    try:
+        best = None
+        for epoch in range(epochs):
+            perm = torch.from_numpy(np.random.default_rng(epoch).permutation(n)).to(device)
+            losses = []
+            for start in range(0, n - batch_size + 1, batch_size):
+                idx = perm[start: start + batch_size]
+                if rows is not None:
+                    idx = rows(idx, grid.dp_index)
+                losses.append(train_step(leaves, tokens_d, lengths_d, labels_d, idx))
+            losses = torch.stack(losses)
+            if grid is not None and grid.dp > 1:
+                # each step's loss over the whole batch: the mean of its dp parts
+                dist.all_reduce(losses, group=grid.dp_group)
+                losses /= grid.dp
+            # one host sync an epoch: the mean of the per-step losses
+            metrics = {"train_loss": float(losses.double().mean())}
+            msg = f"epoch {epoch}: loss {metrics['train_loss']:.4f}"
+            full = whole()
+            if eval_data is not None:
+                m = evaluate(eval_step, full, eval_data)
+                metrics.update(m)
+                msg += " " + " ".join(f"{k} {v:.4f}" for k, v in m.items())
+            log_fn(msg)
+            if checkpoint_dir is not None:
+                hidden = full.w_hh_f.shape[0]
+                meta = {
+                    "arch": f"BiLSTM 4x{hidden}x2 bidirectional",
+                    "epoch": epoch,
+                    "batch_size": batch_size,
+                    "metrics": metrics,
+                }
                 if writer:
-                    save_params(os.path.join(checkpoint_dir, "best.npz"), full, meta)
-            if grid is not None:
-                dist.barrier()
+                    os.makedirs(checkpoint_dir, exist_ok=True)
+                    save_params(
+                        os.path.join(checkpoint_dir, f"epoch{epoch:03d}.npz"), full, meta
+                    )
+                if monitor in metrics:
+                    # loss-like monitors are minimized; everything else maximized
+                    sign = -1.0 if "loss" in monitor else 1.0
+                    score = sign * metrics[monitor]
+                else:
+                    if eval_data is not None:
+                        raise ValueError(
+                            f"monitor={monitor!r} not in metrics {sorted(metrics)}"
+                        )
+                    score = -metrics["train_loss"]
+                if best is None or score > best:
+                    best = score
+                    if writer:
+                        save_params(os.path.join(checkpoint_dir, "best.npz"), full, meta)
+                if grid is not None:
+                    dist.barrier()
+    finally:
+        # the step's graphs and their memory go back before fit returns
+        train_step.release()
     return BiLSTMParams(*(p.detach() for p in whole()))
 
