@@ -2,7 +2,8 @@
 """Smoke test of ribodetector_tpu_torch on one NVIDIA card.
 
     python3 chip_smoke.py            # the whole check (needs one CUDA card)
-    python3 chip_smoke.py --quick    # build + kernel checks at a small batch
+    python3 chip_smoke.py --quick    # build + kernel checks at a small batch,
+                                     # then the card tests
     python3 chip_smoke.py --cards    # build + the main path, then at -d 0,1
                                      # (detect, serve, the portable runner
                                      # and --precision exact) and training
@@ -14,7 +15,8 @@ Phases, one JSON line each; any failure exits non-zero:
   build     csrc/bilstm.cu (nvcc, sm_90a) and native/fastx.cpp (g++), from
             the checkout's sources, built concurrently into _build/; the
             ptxas register/spill report, and from `cuobjdump -sass` each
-            kernel's tensor-core instructions (HMMA/HGMMA), the instructions
+            kernel's tensor-core instructions (HMMA/HGMMA; every kernel
+            must hold some), the instructions
             of one cell evaluation (from the loop of the mode's one-cell
             micro-kernel, rd_cell_floor_<mode>, never launched) and, as a
             diagnostic, those of each kernel's step loop per cell
@@ -28,23 +30,31 @@ Phases, one JSON line each; any failure exits non-zero:
             (lstm_cuda.tc_gate: mean-abs, 99.9th percentile, max-abs
             against the yardstick, no flip above a margin), beside the
             yardstick (the plain version summed in 16-wide k blocks) on
-            the same reads, and once more at
-            the path's batch (262144 reads, T=100), where their plain
-            versions are timed (one call each); the tensor-core kernels'
-            row invariance (shuffled reads, and reads in a batch of another
-            size, bit for bit) and their bit identity with W_hh = 0 (the
-            product exactly zero in any order); high against exact under
+            the same reads (exact beside its own yardstick, the six-limb
+            arithmetic summed in 16-wide k blocks, for information), and
+            once more at the path's batch (262144 reads, T=100), where the
+            tensor-core kernels' plain versions are timed (one call each);
+            every kernel's row invariance (shuffled reads, and reads in a
+            batch of another size, bit for bit) and its bit identity with
+            W_hh = 0 (the product exactly zero in any order); high against
+            exact under
             the startup probe's gate, and the fast kernels' flips against
             exact (information, not a gate)
   timing    kernel and plain times, the bound, and the cuDNN LSTM yardstick
             (fp32 for exact/high, bf16 for the fast kernels) at B=262144,
             T=100, and for exact and high at B=65536, T=300 (high's plain
             time there from the kernels phase, at its batch); the bound is
-            the larger of the bytes and the compute: for
-            the tensor-core kernels the larger of the products at their
-            type's peak and the cell (its instructions at the CUDA cores'
-            issue rate or its MUFU ones at theirs); for exact, whose fp32
-            products and cell issue on the same CUDA cores, their sum
+            the larger of the bytes and the compute, the larger of the
+            products at the bf16 tensor cores' peak (six products for
+            exact, three for high, one for the fast kernels) and the cell
+            (its instructions at the CUDA cores' issue rate or its MUFU
+            ones at theirs); exact's products at the fp32 CUDA-core rate
+            beside it (fp32_cuda_core_ms); the resident clusters of exact
+            and high
+  card_tests  the jax-free card tests (tests/test_torch_card_*.py) under
+            `python3 -m pytest --noconftest` in a child process: fails
+            unless pytest exits 0 and every collected test passed (none
+            skipped)
   main      the CLI main path (paired gz, -l 100, -e both) over 2 x 262144
             reads with a cleared parity-marker cache, its partition checked
             read for read against the plain exact labels on the card, and
@@ -184,9 +194,9 @@ BF16_TC_FLOPS = 989e12
 CUDA_CORE_INSTR_PER_S = FP32_FLOPS / 2
 MUFU_PER_S = CUDA_CORE_INSTR_PER_S / 8
 # cell evaluations one thread makes per step of each kernel's loop
-# (csrc/bilstm.cu: RB x RJ for exact; TM reads x 8 units / 32 lanes for the
-# fast kernels; 32 reads x 8 units / 32 lanes for each of high's warps)
-CELLS_PER_THREAD_STEP = {"exact": 16, "high": 8, "fast": 16, "fast_bf16": 16}
+# (csrc/bilstm.cu: TM reads x 8 units / 32 lanes for the fast kernels; 32
+# reads x 8 units / 32 lanes for each of high's warps, 16 for exact's)
+CELLS_PER_THREAD_STEP = {"exact": 4, "high": 8, "fast": 16, "fast_bf16": 16}
 H = 128
 G = 4 * H
 LIB_CHUNK = 16384  # reads per cuDNN call of the library yardstick at T = 100
@@ -319,7 +329,7 @@ def sass_stats(mode, insns):
     """Tensor-core instructions of one kernel, and, as a diagnostic, the
     instructions of its step loop (the widest backward branch) that run on
     the CUDA cores per cell evaluation: those outside any loop nested in it
-    (exact stages and multiplies W_hh in such loops) and other than
+    and other than
     HMMA/HGMMA/LDSM (the tensor-core product) or NOP. That count takes in
     the step's own work (token load, ldmatrix addresses, barrier, hold and
     capture), so it is the kernel's cost per cell, not the bound's."""
@@ -401,7 +411,7 @@ def phase_build():
         check(stats["cell:" + mode] is not None,
               f"no single loop in the {mode} cell's micro-kernel")
     emit("build", sass=stats)
-    for mode in ("high", "fast", "fast_bf16"):
+    for mode in MODES:
         check(stats[mode]["hmma"] + stats[mode]["hgmma"] > 0,
               f"the {mode} kernel holds no tensor-core instruction")
     return stats
@@ -455,6 +465,40 @@ def gate_tc(params, mode, tok, lens, sem, bwd, got, setting):
     return r, start.elapsed_time(end)
 
 
+# exact's mean |kernel - plain fp32| over its yardstick's (the six-limb
+# arithmetic summed in 16-wide k blocks): a dropped third-limb product
+# (W1*h3, W3*h1, W2*h2) moves the logits by less than the 1e-4 gate, but
+# reads 10-21x on the mean (tests/test_torch_exact.py EXACT_FAULTS)
+EXACT_MEAN_VS_YARDSTICK = 4.0
+
+
+def gate_exact(params, tok, lens, sem, bwd, got, setting, yardstick=True):
+    """The exact kernel's logits against the plain fp32 recurrence: max-abs
+    <= 1e-4 and no flip at a plain margin >= 1e-4; unless yardstick=False,
+    also beside its order yardstick against the same, its mean-abs within
+    EXACT_MEAN_VS_YARDSTICK of the yardstick's. Emits the readings and
+    fails outside either check. Returns the readings."""
+    from ribodetector_tpu_torch.ops.lstm_cuda import PLAIN, YARDSTICK
+
+    ref = PLAIN["exact"](params, tok, lens, semantics=sem, bwd_init=bwd).cpu().numpy()
+    r = compare(got, ref)
+    extra = {}
+    if yardstick:
+        yard = YARDSTICK["exact"](params, tok, lens, semantics=sem, bwd_init=bwd).cpu().numpy()
+        y = compare(yard, ref)
+        extra = {"yardstick": {k: y[k] for k in ("max_abs", "mean_abs", "flips")},
+                 "vs_yardstick_max_abs": float(np.abs(got - yard).max()),
+                 "mean_vs_yardstick": r["mean_abs"] / max(y["mean_abs"], 1e-30)}
+    emit("kernels", kernel="exact", setting=setting, B=tok.shape[0], vs="plain", **r,
+         **extra)
+    check(r["max_abs"] <= 1e-4 and r["flips_m1e-4"] == 0,
+          f"exact kernel disagrees with its plain version ({setting}): {r}")
+    check(not extra or extra["mean_vs_yardstick"] <= EXACT_MEAN_VS_YARDSTICK,
+          f"exact kernel's mean-abs is {extra.get('mean_vs_yardstick')}x its "
+          f"yardstick's ({setting})")
+    return r
+
+
 def zero_product(params, mode, tok, lens, sem, bwd, setting):
     """Bit for bit against the plain version with W_hh = 0, where the
     product is exactly zero whatever order the tensor cores sum in. The
@@ -485,11 +529,7 @@ def phase_kernels(params, quick):
     import torch
 
     from ribodetector_tpu_torch.models.bilstm import zero_prefix_state
-    from ribodetector_tpu_torch.ops.lstm_cuda import (
-        PLAIN,
-        TC_GATE,
-        bilstm_logits_cuda,
-    )
+    from ribodetector_tpu_torch.ops.lstm_cuda import TC_GATE, bilstm_logits_cuda
 
     dev = params.w_hh_f.device
     rng = np.random.default_rng(7)
@@ -498,7 +538,8 @@ def phase_kernels(params, quick):
     # in proportion to B * T (plain high 3.2 s a call at 4133 reads and
     # T = 300), and no term of the gates grows with B
     B_long = (1024 if quick else 4096) + 37
-    B_192 = (256 if quick else 1024) + 37
+    # as many reads under --quick: TC_GATE's 99.9th percentile needs them
+    B_192 = 1024 + 37
     # (name, T, semantics, backward-carry steps, reads): the -l 100 path's
     # buckets (T = 100 and the 64 bucket's 36-step init), and the -l 300
     # grid's (configuration 4): its full bucket, dense with the 256
@@ -533,23 +574,19 @@ def phase_kernels(params, quick):
                 check(got.shape == (B, 2) and np.isfinite(got).all(),
                       f"{mode} {name}: shape {got.shape} or non-finite logits")
                 if mode in TC_GATE:
-                    # the tensor cores sum in their own order: held to the
-                    # gate, beside what a change of order alone does
+                    # the tensor cores sum in their own order, amplified:
+                    # held to the gate, beside what a change of order alone
+                    # does
                     r, ms = gate_tc(params, mode, tok, lens, sem, bwd, got, name)
                     if name == "T300_dense_bwd44":
                         t300_plain[mode] = ms
-                    inv = row_invariance(params, mode, tok, lens, sem, bwd)
-                    emit("kernels", kernel=mode, setting=name, B=B,
-                         row_invariance=inv)
-                    check(all(inv.values()),
-                          f"{mode}: a read's logits depend on its batch: {inv}")
-                    zero_product(params, mode, tok, lens, sem, bwd, name)
-                else:
-                    ref = PLAIN[mode](params, tok, lens, semantics=sem, bwd_init=bwd)
-                    r = compare(got, ref.cpu().numpy())
-                    emit("kernels", kernel=mode, setting=name, B=B, vs="plain", **r)
-                    check(r["max_abs"] <= 1e-4 and r["flips_m1e-4"] == 0,
-                          f"{mode} kernel disagrees with its plain version: {r}")
+                else:  # exact: the fp32 recurrence's 1e-4
+                    r = gate_exact(params, tok, lens, sem, bwd, got, name)
+                inv = row_invariance(params, mode, tok, lens, sem, bwd)
+                emit("kernels", kernel=mode, setting=name, B=B, row_invariance=inv)
+                check(all(inv.values()),
+                      f"{mode}: a read's logits depend on its batch: {inv}")
+                zero_product(params, mode, tok, lens, sem, bwd, name)
                 max_err[mode] = max(max_err[mode], r["max_abs"])
                 out[mode] = got
             r = compare(out["high"], out["exact"])
@@ -562,26 +599,34 @@ def phase_kernels(params, quick):
                 emit("kernels", kernel=mode, setting=name, B=B, vs="exact",
                      **compare(out[mode], out["exact"]))
             emit("kernels", setting=name, B=B, wall_s=time.perf_counter() - t_setting)
-        # the gate once more at the batch of one device call of the main
-        # path (the timing batch): its terms must not depend on the number
-        # of reads, and here the plain versions of the tensor-core kernels
-        # are timed (one call each: plain high sums in k order, one
+        # the gates once more at the batch of one device call of the main
+        # path (the timing batch): TC_GATE's terms must not depend on the
+        # number of reads, and here the plain versions of the other three
+        # kernels are timed (one call each: plain high sums in k order, one
         # elementwise op per product, and takes ~36 s)
         Bp = 16384 if quick else 262144
         tok = torch.from_numpy(random_tokens(np.random.default_rng(11), Bp, 100)[0]).to(dev)
-        for mode in TC_GATE:
-            got = bilstm_logits_cuda(params, tok, semantics="dense", mode=mode)
-            r, plain_ms[mode] = gate_tc(params, mode, tok, None, "dense", None,
-                                        got.cpu().numpy(), "T100_dense_path_batch")
+        for mode in MODES:
+            got = bilstm_logits_cuda(params, tok, semantics="dense", mode=mode).cpu().numpy()
+            if mode in TC_GATE:
+                r, plain_ms[mode] = gate_tc(params, mode, tok, None, "dense", None,
+                                            got, "T100_dense_path_batch")
+            else:
+                r = gate_exact(params, tok, None, "dense", None, got,
+                               "T100_dense_path_batch", yardstick=False)
             max_err[mode] = max(max_err[mode], r["max_abs"])
     return max_err, {"plain_ms": plain_ms, "plain_B": Bp, "t300_plain_ms": t300_plain,
                      "t300_plain_B": B_long}
 
 
-def high_placement():
-    """The SMs the high kernel's clusters leave idle: a cluster's two blocks
-    take two SMs of one GPC, so a GPC with an odd count of SMs keeps one
-    free (cudaOccupancyMaxActiveClusters, one block per SM)."""
+CLUSTER_BLOCKS = {"exact": 4, "high": 2}  # blocks per cluster (csrc/bilstm.cu)
+
+
+def placement(mode):
+    """The SMs the exact or the high kernel's clusters leave idle: a
+    cluster's blocks take SMs of one GPC, so a GPC whose SM count is not a
+    multiple of the cluster's size keeps the rest free
+    (cudaOccupancyMaxActiveClusters, one block per SM)."""
     import ctypes
 
     import torch
@@ -589,44 +634,44 @@ def high_placement():
     from ribodetector_tpu_torch.ops.build import kernel_library
 
     lib, n = kernel_library(), ctypes.c_int(0)
-    err = lib.rd_high_max_active_clusters(ctypes.byref(n))
+    err = lib.rd_max_active_clusters(MODES.index(mode), ctypes.byref(n))
     check(err == 0, f"cudaOccupancyMaxActiveClusters failed: "
                     f"{lib.rd_cuda_error_string(err).decode()}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return {"sms": sms, "resident_clusters": n.value, "idle_sms": sms - 2 * n.value}
+    return {"sms": sms, "cluster_blocks": CLUSTER_BLOCKS[mode],
+            "resident_clusters": n.value,
+            "idle_sms": sms - CLUSTER_BLOCKS[mode] * n.value}
 
 
 def bound(mode, B, T, sass):
     """The least time of one call over B reads of T steps: the largest of
     the bytes, each input read once and the output written once (tokens,
-    gather, W_hh in its type -- high's two bf16 limbs: 4 bytes an element
-    --, the token table; last_out [B, 256] fp32 out); the multiply-adds at
-    the peak rate of their type (fp32 for exact, bf16 tensor cores for
-    high's limbs and the fast modes' single pass); and the cell's
-    evaluations (2*T*H a read) on the CUDA cores: the instructions of one
-    cell in the mode's micro-kernel (read from the SASS in the build phase)
-    at the issue rate, or its MUFU instructions at theirs, whichever takes
-    longer. For exact the fp32 products (FFMA) and the cell issue on the
-    same CUDA-core slots, so its compute takes their sum; the tensor-core
-    kernels overlap their products with the cell, so theirs is the larger."""
-    w_bytes = {"exact": 4, "high": 4, "fast": 2, "fast_bf16": 2}
+    gather, W_hh in its type -- exact's three bf16 limbs: 6 bytes an
+    element, high's two: 4 --, the token table; last_out [B, 256] fp32
+    out); the multiply-adds at the bf16 tensor cores' peak, once for each
+    limb product (six for exact, as the TPU's HIGHEST precision computes
+    the fp32 product; three for high; one for the fast modes); and the
+    cell's evaluations (2*T*H a read) on the CUDA cores: the instructions
+    of one cell in the mode's micro-kernel (read from the SASS in the build
+    phase) at the issue rate, or its MUFU instructions at theirs, whichever
+    takes longer. The products on the tensor cores overlap the cell on the
+    CUDA cores, so the compute is the larger of the two.
+    fp32_cuda_core_ms: the multiply-adds once at the fp32 CUDA-core peak
+    (exact's bound before it ran on the tensor cores, with the cell)."""
+    w_bytes = {"exact": 6, "high": 4, "fast": 2, "fast_bf16": 2}
     flops = 2.0 * 2 * T * G * H * B
     cells = 2.0 * T * H * B
-    products_ms = 1e3 * flops / {"exact": FP32_FLOPS, "high": BF16_TC_FLOPS / 3,
-                                 "fast": BF16_TC_FLOPS, "fast_bf16": BF16_TC_FLOPS}[mode]
+    products = {"exact": 6, "high": 3, "fast": 1, "fast_bf16": 1}[mode]
+    products_ms = 1e3 * products * flops / BF16_TC_FLOPS
     nbytes = (B * T + 4 * B + w_bytes[mode] * 2 * H * G + 4 * 2 * 5 * G
               + 4 * B * 2 * H)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     cell = sass.get("cell:" + mode)
     cell_ms = None if cell is None else 1e3 * cells * max(
         cell["insns"] / CUDA_CORE_INSTR_PER_S, cell["mufu"] / MUFU_PER_S)
-    if mode == "exact":
-        compute_ms = products_ms + (cell_ms or 0.0)
-    else:
-        compute_ms = max(products_ms, cell_ms or 0.0)
+    compute_ms = max(products_ms, cell_ms or 0.0)
     return {"bytes_ms": bytes_ms, "products_ms": products_ms, "cell_ms": cell_ms,
-            "compute_ms": compute_ms,
-            "compute_rule": "products + cell" if mode == "exact" else "max(products, cell)",
+            "compute_ms": compute_ms, "compute_rule": "max(products, cell)",
             "cell_insns": cell and cell["insns"], "cell_mufu": cell and cell["mufu"],
             "fp32_cuda_core_ms": 1e3 * flops / FP32_FLOPS,
             "bound_ms": max(bytes_ms, compute_ms),
@@ -684,7 +729,8 @@ def cudnn_yardstick(params):
 
 def phase_timing(params, quick, tc_plain, sass):
     """Times at the main path's full device call (2 x 131072 reads, T=100),
-    and of high and exact at -l 300's full bucket (B = 65536, T = 300)."""
+    of exact at its eval and probe batches (4096 and 16384 reads), and of
+    high and exact at -l 300's full bucket (B = 65536, T = 300)."""
     import torch
 
     from ribodetector_tpu_torch.ops.lstm_cuda import PLAIN, bilstm_logits_cuda
@@ -722,10 +768,21 @@ def phase_timing(params, quick, tc_plain, sass):
         res[mode].update(library_ms=lib_ms[lib], bound_ms=b["bound_ms"],
                          bound_by=b["bound_by"])
         emit("timing", kernel=mode, B=B, T=T, library=f"cudnn_{lib}",
-             **(high_placement() if mode == "high" else {}),
+             **(placement(mode) if mode in CLUSTER_BLOCKS else {}),
              library_err=lib_err[lib], library_calls=-(-B // lib_chunk(T)),
              step_loop_insns_per_cell=sass.get(mode, {}).get("step_loop_insns_per_cell"),
              **{**b, **res[mode]})
+
+    # exact at the batches it runs at on the paths: the training eval
+    # step's 4096 reads and the startup probe's 16384 (T = 100), where a
+    # call fills few waves of the card
+    for Bs, role in ((4096, "eval_batch"), (16384, "probe_batch")):
+        tok_s = tok[:Bs].contiguous()
+        with torch.no_grad():
+            ms = cuda_time_ms(lambda: bilstm_logits_cuda(params, tok_s, semantics="dense",
+                                                         mode="exact"), 5)
+        emit("timing", kernel="exact", role=role, B=Bs, T=T, ms=ms,
+             reads_per_s=1e3 * Bs / ms, bound_ms=bound("exact", Bs, T, sass)["bound_ms"])
 
     # -l 300's full bucket, the longest rows any kernel reads (one byte a
     # token at a stride of T): high (every bucket of configuration 4) and
@@ -749,6 +806,46 @@ def phase_timing(params, quick, tc_plain, sass):
                  **bound(mode, B3, T3, sass))
     torch.cuda.empty_cache()
     return res
+
+
+CARD_TESTS = os.path.join("tests", "test_torch_card_*.py")
+
+
+def phase_card_tests():
+    """The jax-free card tests under pytest in a child process, without the
+    repo's conftest (it imports jax, which this machine need not have).
+    Fails unless pytest exits 0 and every collected test passed, none
+    skipped; emits the counts."""
+    import glob
+    import xml.etree.ElementTree as ET
+
+    files = sorted(os.path.relpath(f, REPO) for f in glob.glob(os.path.join(REPO, CARD_TESTS)))
+    check(files, f"no {CARD_TESTS} in the checkout")
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "card_tests.xml")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p", "no:cacheprovider",
+             f"--junitxml={report}", *files],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        tail = (proc.stdout + proc.stderr)[-3000:]
+        check(os.path.exists(report), f"the card tests wrote no report (exit "
+                                      f"{proc.returncode}):\n{tail}")
+        root = ET.parse(report).getroot()
+    suite = root if root.tag == "testsuite" else root.find("testsuite")
+    n = {k: int(suite.get(k, 0)) for k in ("tests", "failures", "errors", "skipped")}
+    passed = n["tests"] - n["failures"] - n["errors"] - n["skipped"]
+    slowest = sorted(((float(c.get("time", 0)), c.get("name")) for c in suite.iter("testcase")),
+                     reverse=True)[:5]
+    emit("card_tests", files=files, rc=proc.returncode, collected=n["tests"],
+         passed=passed, skipped=n["skipped"], failed=n["failures"], errors=n["errors"],
+         wall_s=wall, tests_s=float(suite.get("time", 0)),
+         slowest=[{"test": name, "s": t} for t, name in slowest])
+    check(proc.returncode == 0, f"the card tests exited {proc.returncode}:\n{tail}")
+    check(n["skipped"] == 0, f"{n['skipped']} card tests skipped on the card:\n{tail}")
+    check(n["tests"] > 0 and passed == n["tests"],
+          f"{passed} of {n['tests']} card tests passed:\n{tail}")
 
 
 def write_pairs(dirname, n, rng, prefix="in", motif=None):
@@ -2285,6 +2382,7 @@ def main(argv):
         return
     max_err, tc_plain = timed("kernels", phase_kernels, params, quick)
     times = timed("timing", phase_timing, params, quick, tc_plain, sass)
+    timed("card_tests", phase_card_tests)
     if quick:
         emit("walls", **walls)
         emit("quick", done=True)

@@ -21,8 +21,16 @@
 // written out at the read's gather step. Output last_out [B, 2H] fp32; the
 // Linear(256->2) head runs in the wrapper.
 //
-//   exact: gates in fp32 FMA, sigmoid 1/(1+expf(-x)), tanhf (IEEE; the build
-//          must not use --use_fast_math).
+//   exact: what the TPU's HIGHEST-precision dot computes: the fp32 product
+//          as six bf16 products on the tensor cores (wgmma), from three
+//          bf16 limbs of each operand (x1 = bf16_rn(x), x2 = bf16_rn(x -
+//          x1), x3 =
+//          bf16_rn(x - x1 - x2), all 24 bits of x): W1*h1 in one fp32
+//          accumulator, W1*h2, W2*h1, W1*h3, W3*h1, W2*h2 (the products whose
+//          limb indices add up to at most 4) in a second, the two added in
+//          fp32 after the k loop, + the exact fp32 token row; sigmoid
+//          1/(1+expf(-x)), tanhf (IEEE; the build must not use
+//          --use_fast_math).
 //   high:  gates = Whi*hhi + Whi*hlo + Wlo*hhi accumulated in fp32 on the
 //          bf16 tensor cores, + the exact fp32 token row, with hhi =
 //          bf16_rn(h), hlo = bf16_rn(h - hhi), Whi = bf16_rn(W), Wlo =
@@ -43,7 +51,7 @@
 //   Every cell op is spelled out with __fmul_rn/__fadd_rn/__fdiv_rn (no FMA
 //   contraction), as the plain versions round.
 //
-// Tolerance of the tensor-core modes (high, fast, fast_bf16). A
+// Tolerance of high, fast and fast_bf16. A
 // tensor-core mma sums its 16 products per k-step in its own order, so
 // these kernels are NOT bit-identical to their plain versions
 // (ops/lstm_cuda.py bilstm_logits_high_plain / bilstm_logits_fast_plain,
@@ -59,21 +67,12 @@
 // where the product is exactly zero in any order: that sees what the
 // tolerance cannot, a change that moves each step by about an ulp, as the
 // order does (the exp form of high's sigmoid).
+// exact keeps the fp32 recurrence's tolerance (max-abs 1e-4 against the
+// plain fp32 version): its limbs hold all of h and of W, so no rounding of
+// a limb amplifies the order, and the dropped products are ~2^-26 of the
+// product. It too is held bit for bit with W_hh = 0.
 // Each read's logits depend only on its own tokens (no sum crosses rows),
 // so they are bit-identical whatever batch the read sits in.
-//
-// Design of exact (CUDA cores). One block per (direction, tile of BT
-// reads); blocks are independent, so the TPU kernel's sequential grid,
-// 2-step unroll and feature-major VMEM layout do not carry over. Per step
-// the block forms the [BT, G] gate product as a small GEMM: W_hh streams
-// from L2 through shared memory in KC-row chunks (256 KB per direction in
-// fp32 does not fit one block's shared memory, and it stays resident in the
-// 50 MB L2), h for the tile sits in shared memory as [H][BT], and each
-// thread owns RB reads x RJ hidden units x 4 gates of accumulators, so the
-// cell update happens in registers and c never leaves them. Each read is
-// captured exactly once per direction (its gather index lies in [0, T-1]),
-// so the output is written straight from the capturing step. Bound: the
-// 2*T*G*H multiply-adds per read at the fp32 CUDA-core rate.
 //
 // Design of fast and fast_bf16 (bf16 tensor cores). Two floors bound them
 // on this card: the products at the bf16 tensor-core rate, and the cell's
@@ -134,6 +133,58 @@
 // idle (an H100 SXM holds 66 clusters on its 132 SMs: none is). Bound: the
 // three products at the bf16 tensor-core rate (20.85 ms at B = 262144,
 // T = 100) and the cell on the CUDA cores (18.83 ms), about even.
+//
+// Design of exact (bf16 tensor cores, warpgroup products, a cluster of
+// four blocks). The TPU kernel runs the fp32 product as six bf16 passes of
+// its matrix unit, and so does this one: six products per k16 step, as
+// Hopper's asynchronous warpgroup MMA (wgmma.mma_async, the only path to
+// the tensor cores' full rate). It needs three limbs of W^T, 3 x 128 KB in
+// bf16 per direction, and three limbs of h, so each (direction, tile of
+// TM = 64 reads) runs on a cluster of four blocks (__cluster_dims__(4, 1,
+// 1)):
+//   - block r owns hidden units [32r, 32r+32) in all four gates (128 of the
+//     512 gate columns) and holds the three limbs of W^T for them, bf16
+//     [3][2 k-panels][128][64] = 96 KB, resident for all T steps, in the
+//     layout wgmma reads through a matrix descriptor (rows of 64 k, 128
+//     bytes, 16-byte chunks XOR-swizzled by row: the hardware's 128-byte
+//     swizzle), rows ordered so that a warpgroup's 32 columns are 32
+//     consecutive rows;
+//   - each block keeps the whole h of its 64 reads double-buffered as three
+//     bf16 limbs, [2 buf][3 limb][TM][H] = 96 KB, swizzled as the fast
+//     kernels' h; with the fp32 token table of its 128 columns, ~196 KB in
+//     all, one block per SM;
+//   - 4 warpgroups (16 warps), one per 8 units: warpgroup g computes the
+//     64 reads x 32 columns (4 gates x its 8 units) as wgmma m64n32k16,
+//     with the h limbs (A) in registers, loaded by ldmatrix as mma.sync
+//     fragments (warp w of the group: reads [16w, 16w+16)), and W (B)
+//     through its descriptor. Two fp32 accumulators (16 registers each):
+//     W1*h1 in the first, the five smaller products in the second, so the
+//     small products are summed at their own scale and not truncated to
+//     the large sum's (the tensor cores round an inexact sum their own
+//     way). The A fragments alternate between two register sets, so a k
+//     step's loads wait only for the products two k steps back. Each
+//     warp's accumulators hold the mma.sync C fragment of its 16 reads for
+//     each gate;
+//   - the cell runs on the two accumulators' fp32 sum in registers; the
+//     thread that owns a (read, unit pair) splits the new h into its three
+//     limbs and stores them into the next buffer of all four blocks, its
+//     own and the three peers' through distributed shared memory;
+//   - one cluster barrier per step, as high's.
+// Slower on the card, and not kept: the same layout on mma.sync (6 x 4
+// m16n8k16 per warp and k16 step, W fragments by ldmatrix; 1.10x the
+// time), with 8 warps of two m16 tiles (1.15x), row groups synchronized
+// apart on mbarriers in place of the cluster barrier, and 16-byte DSMEM
+// stores gathered by shuffles. Does not fit: a cluster of two blocks
+// keeping h in fp32 and forming its limbs in registers (W's limbs alone
+// take 192 KB of such a block; fp32 h for 64 reads, double-buffered,
+// another 64 KB, and even for 32 reads the token table no longer fits
+// beside them).
+// A cluster's four blocks must land in one GPC; a GPC whose free SM count
+// is not a multiple of four leaves the rest idle (chip_smoke.py reports the
+// resident clusters). Bound: the six products at the bf16 tensor-core rate
+// (41.70 ms at B = 262144, T = 100) over the cell on the CUDA cores. A
+// step runs the products, then the cell with its stores, then the barrier,
+// one after another.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -162,12 +213,11 @@ __device__ __forceinline__ float sigm(float x) {
   // versions, which run each operation as its own kernel, round the same way
   if (MODE == HIGH)
     return __fadd_rn(__fmul_rn(0.5f, tanhf(__fmul_rn(0.5f, x))), 0.5f);
-  if (MODE == FAST) return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
   if (MODE == FAST_BF16) {
     const float t = bf16_round(tanhf(bf16_round(__fmul_rn(0.5f, x))));
     return bf16_round(__fadd_rn(bf16_round(__fmul_rn(0.5f, t)), 0.5f));
   }
-  return 1.0f / (1.0f + expf(-x));
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));  // EXACT, FAST
 }
 
 // One cell evaluation of one (read, unit): gates = the product's
@@ -176,13 +226,6 @@ __device__ __forceinline__ float sigm(float x) {
 template <int MODE>
 __device__ __forceinline__ void cell(const float (&acc)[4], const float (&x)[4],
                                      float c, float& cn, float& hv) {
-  if (MODE == EXACT) {
-    const float gi = acc[0] + x[0], gf = acc[1] + x[1];
-    const float gg = acc[2] + x[2], go = acc[3] + x[3];
-    cn = sigm<MODE>(gf) * c + sigm<MODE>(gi) * tanhf(gg);
-    hv = sigm<MODE>(go) * tanhf(cn);
-    return;
-  }
   float g[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -194,7 +237,7 @@ __device__ __forceinline__ void cell(const float (&acc)[4], const float (&x)[4],
     const float ig = bf16_round(__fmul_rn(sigm<MODE>(g[0]), bf16_round(tanhf(g[2]))));
     cn = bf16_round(__fadd_rn(fc, ig));
     hv = bf16_round(__fmul_rn(sigm<MODE>(g[3]), bf16_round(tanhf(cn))));
-  } else {  // HIGH, FAST: fp32 cell, one rounding per op
+  } else {  // EXACT, HIGH, FAST: fp32 cell, one rounding per op
     cn = __fadd_rn(__fmul_rn(sigm<MODE>(g[1]), c),
                    __fmul_rn(sigm<MODE>(g[0]), tanhf(g[2])));
     hv = __fmul_rn(sigm<MODE>(g[3]), tanhf(cn));
@@ -217,139 +260,6 @@ __device__ __forceinline__ void cell_floor(const float* in, float* out, int n) {
   }
   out[0] = c;
   out[1] = h;
-}
-
-// ---------------------------------------------------------------------------
-// exact: products as fp32 FMAs on the CUDA cores
-
-constexpr int BT = 32;       // reads per block
-constexpr int KC = 16;       // W_hh rows per shared-memory chunk
-constexpr int NT = 256;      // threads per block
-constexpr int RB = 4;        // reads per thread
-constexpr int RJ = 4;        // hidden units per thread
-static_assert((NT / 32) * RB == BT, "one warp per RB-read group");
-static_assert(32 * RJ == H, "a warp covers all hidden units");
-static_assert(H % KC == 0, "chunking");
-static_assert(RB == 4 && RJ == 4, "float4 loads of h and W");
-
-// W chunk [KC][G], h [H][BT], this direction's token table [NTOK][G],
-// tokens [2][BT] int
-constexpr size_t EXACT_SMEM =
-    sizeof(float) * (KC * G + H * BT + NTOK * G) + sizeof(int) * 2 * BT;
-
-// tokens  [B, T] uint8 (values > 4 are treated as the pad token)
-// gather  [B] int32 capture step per read, in [0, T-1]
-// lengths [B] int32 true lengths (read only when packed)
-// whh     [2, H, G] fp32 W_hh per direction
-// tokw    [2, NTOK, G] fp32 token/bias table per direction
-// init    [2, H] fp32: backward-carry init h then c
-// out     [B, 2H] fp32: forward capture in [:, :H], backward in [:, H:]
-__global__ void __launch_bounds__(NT, 2)
-bilstm_exact_kernel(const uint8_t* __restrict__ tokens, const int* __restrict__ gather,
-                    const int* __restrict__ lengths, const float* __restrict__ whh,
-                    const float* __restrict__ tokw, const float* __restrict__ init,
-                    float* __restrict__ out, int B, int T, int packed) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sW = smem;                          // [KC][G]
-  float* sH = sW + KC * G;                   // [H][BT]
-  float* sTw = sH + H * BT;                  // [NTOK][G]
-  int* sTok = reinterpret_cast<int*>(sTw + NTOK * G);  // [2][BT]
-
-  const int d = blockIdx.y;  // 0 forward, 1 backward
-  const int r0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const int j0 = (tid & 31) * RJ;
-  const int b0 = (tid >> 5) * RB;
-  const float* W = whh + (size_t)d * H * G;
-
-  for (int i = tid; i < NTOK * G; i += NT) sTw[i] = tokw[(size_t)d * NTOK * G + i];
-
-  auto init_val = [&](int i) { return d ? init[i] : 0.0f; };
-  int gidx[RB], len[RB];
-  float h[RB][RJ], c[RB][RJ];
-#pragma unroll
-  for (int rb = 0; rb < RB; ++rb) {
-    const int r = r0 + b0 + rb;
-    gidx[rb] = r < B ? gather[r] : -1;
-    len[rb] = (packed && r < B) ? lengths[r] : 0;
-#pragma unroll
-    for (int rj = 0; rj < RJ; ++rj) {
-      h[rb][rj] = init_val(j0 + rj);
-      c[rb][rj] = init_val(H + j0 + rj);
-    }
-  }
-  for (int i = tid; i < H * BT; i += NT) sH[i] = init_val(i / BT);
-
-  for (int t = 0; t < T; ++t) {
-    const int pos = d ? T - 1 - t : t;
-    int* tok = sTok + (t & 1) * BT;  // double-buffered: no read/write race
-    if (tid < BT) {
-      const int r = r0 + tid;
-      const int v = r < B ? (int)tokens[(size_t)r * T + pos] : NTOK - 1;
-      tok[tid] = v < NTOK - 1 ? v : NTOK - 1;
-    }
-
-    float acc[RB][4][RJ];
-#pragma unroll
-    for (int rb = 0; rb < RB; ++rb)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int rj = 0; rj < RJ; ++rj) acc[rb][q][rj] = 0.0f;
-
-    for (int k0 = 0; k0 < H; k0 += KC) {
-      __syncthreads();  // previous chunk consumed; last step's h visible
-      const float4* src = reinterpret_cast<const float4*>(W + (size_t)k0 * G);
-      for (int i = tid; i < KC * G / 4; i += NT)
-        reinterpret_cast<float4*>(sW)[i] = __ldg(src + i);
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 h4 = *reinterpret_cast<const float4*>(sH + (k0 + kk) * BT + b0);
-        const float hv[RB] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 w4 = *reinterpret_cast<const float4*>(sW + kk * G + q * H + j0);
-          const float wv[RJ] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-          for (int rb = 0; rb < RB; ++rb)
-#pragma unroll
-            for (int rj = 0; rj < RJ; ++rj)
-              acc[rb][q][rj] = fmaf(hv[rb], wv[rj], acc[rb][q][rj]);
-        }
-      }
-    }
-    __syncthreads();  // every read of this step's h is done before overwrite
-
-#pragma unroll
-    for (int rb = 0; rb < RB; ++rb) {
-      const int b = b0 + rb;
-      const float* tw = sTw + tok[b] * G;
-      const bool hold = packed && d && pos >= len[rb];
-      const bool cap = gidx[rb] == pos;
-      float hn[RJ];
-#pragma unroll
-      for (int rj = 0; rj < RJ; ++rj) {
-        const int j = j0 + rj;
-        const float a[4] = {acc[rb][0][rj], acc[rb][1][rj], acc[rb][2][rj],
-                            acc[rb][3][rj]};
-        const float x[4] = {tw[j], tw[H + j], tw[2 * H + j], tw[3 * H + j]};
-        float cn, hv;
-        cell<EXACT>(a, x, c[rb][rj], cn, hv);
-        if (!hold) {
-          c[rb][rj] = cn;
-          h[rb][rj] = hv;
-        }
-        hn[rj] = h[rb][rj];
-        sH[j * BT + b] = hn[rj];
-      }
-      if (cap) {
-        *reinterpret_cast<float4*>(out + (size_t)(r0 + b) * (2 * H) + d * H + j0) =
-            make_float4(hn[0], hn[1], hn[2], hn[3]);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -412,7 +322,11 @@ __device__ __forceinline__ void mma_bf16(float* acc, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// tokens, gather, lengths, init, out: as bilstm_exact_kernel
+// tokens  [B, T] uint8 (values > 4 are treated as the pad token)
+// gather  [B] int32 capture step per read, in [0, T-1]
+// lengths [B] int32 true lengths (read only when packed)
+// init    [2, H] fp32: backward-carry init h then c
+// out     [B, 2H] fp32: forward capture in [:, :H], backward in [:, H:]
 // wt    [2, G, H] bf16: bf16_rn(W_hh)^T per direction
 // tokw  [2, NTOK, G] fp32: the token/bias table, bf16-rounded values
 template <int MODE>
@@ -583,7 +497,7 @@ static_assert(HWARPS == (HU / 8) * (TM / 32), "a warp: 8 units x 32 rows");
 constexpr size_t HIGH_SMEM = 2 * WLIMB + 2 * HBUF + sizeof(float) * NTOK * HTWS +
                              sizeof(int) * 4 * TM;
 
-// tokens, gather, lengths, init, out: as bilstm_exact_kernel
+// tokens, gather, lengths, init, out: as bilstm_tc_kernel
 // whi, wlo [2, G, H] bf16: the limbs bf16_rn(W_hh)^T and
 //          bf16_rn(W_hh - Whi)^T per direction
 // tokw     [2, NTOK, G] fp32: the token/bias table, exact
@@ -768,6 +682,262 @@ bilstm_high_kernel(const uint8_t* __restrict__ tokens, const int* __restrict__ g
   }
 }
 
+// ---------------------------------------------------------------------------
+// exact: six bf16 limb products on the tensor cores, W's three limbs split
+// over a cluster of four blocks
+
+constexpr int XCL = 4;                // blocks per cluster
+constexpr int XU = H / XCL;           // hidden units of one block of the cluster
+constexpr int XG = 4 * XU;            // its gate columns (i, f, g, o of XU units)
+constexpr int XWG = XU / 8;           // warpgroups: one per 8 units, all 4 gates
+constexpr int XNT = 128 * XWG;        // threads per block
+constexpr int XTWS = XG + 8;          // token-table row stride in floats
+constexpr int XHLIMB = 2 * TM * H;    // bytes of one h limb [TM][H] bf16
+constexpr int XHBUF = 3 * XHLIMB;     // bytes of one h buffer (three limbs)
+constexpr int XWPANEL = 128 * XG;     // bytes of one 64-wide k panel of a W limb
+constexpr int XWLIMB = 2 * XWPANEL;   // bytes of one W limb [2 panel][XG][64] bf16
+static_assert(TM == 64, "a warpgroup's product covers the tile's 64 reads");
+constexpr size_t EXACT_SMEM = 3 * XWLIMB + 2 * XHBUF + sizeof(float) * NTOK * XTWS +
+                              sizeof(int) * 4 * TM;
+
+// The three bf16 limbs of a pair of fp32 values: l1 = bf16_rn(v), l2 =
+// bf16_rn(v - l1), l3 = bf16_rn(v - l1 - l2). Both subtractions are exact,
+// and l1 + l2 + l3 == v for normal v (all 24 bits of the significand).
+__device__ __forceinline__ void split3(float2 v, __nv_bfloat162 (&l)[3]) {
+  l[0] = __floats2bfloat162_rn(v.x, v.y);
+  const float2 f1 = __bfloat1622float2(l[0]);
+  const float2 r1 = make_float2(__fsub_rn(v.x, f1.x), __fsub_rn(v.y, f1.y));
+  l[1] = __floats2bfloat162_rn(r1.x, r1.y);
+  const float2 f2 = __bfloat1622float2(l[1]);
+  l[2] = __floats2bfloat162_rn(__fsub_rn(r1.x, f2.x), __fsub_rn(r1.y, f2.y));
+}
+
+// Hopper's warpgroup products (wgmma): a warpgroup of 4 warps multiplies
+// a 64-row A (each warp's 16 rows in registers, the mma.sync A fragment)
+// by an N-column B in shared memory, read through a matrix descriptor,
+// asynchronously; the fp32 accumulators hold, per warp and 8 columns, the
+// mma.sync C fragment.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// descriptor of a K-major bf16 tile in shared memory, 128-byte swizzle:
+// rows of 64 k (128 bytes), 8-row atoms of 1024 bytes, 1024-aligned, at
+// stride_bytes from one atom of rows to the next
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr, uint32_t stride_bytes) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(stride_bytes >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (+)= A (64 x 16, bf16, registers) * B (16 x 32, bf16, descriptor);
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// tokens, gather, lengths, init, out: as bilstm_tc_kernel
+// wl    [3, 2, G, H] bf16: limb l of W_hh^T per direction: W1 = bf16_rn(W),
+//       W2 = bf16_rn(W - W1), W3 = bf16_rn(W - W1 - W2)
+// tokw  [2, NTOK, G] fp32: the token/bias table, exact
+// Block rank r of each cluster owns hidden units [XU*r, XU*r + XU).
+__global__ void __cluster_dims__(XCL, 1, 1) __launch_bounds__(XNT, 1)
+bilstm_exact_kernel(const uint8_t* __restrict__ tokens, const int* __restrict__ gather,
+                    const int* __restrict__ lengths,
+                    const __nv_bfloat16* __restrict__ wl,
+                    const float* __restrict__ tokw, const float* __restrict__ init,
+                    float* __restrict__ out, int B, int T, int packed) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  // 1024-aligned: the W panels' 128-byte swizzle atoms
+  extern __shared__ __align__(1024) uint4 smem_x[];
+  char* sW = reinterpret_cast<char*>(smem_x);    // [3 limb][2 panel][XG][64] bf16
+  char* sH = sW + 3 * XWLIMB;                    // [2 buf][3 limb][TM][H] bf16
+  float* sTw = reinterpret_cast<float*>(sH + 2 * XHBUF);  // [NTOK][XTWS]
+  int* sTok = reinterpret_cast<int*>(sTw + NTOK * XTWS);  // [2][TM]
+  int* sGat = sTok + 2 * TM;                              // [TM]
+  int* sLen = sGat + TM;                                  // [TM]
+  // the h buffers of every block of the cluster, this one first: each new
+  // h goes to all of them
+  char* sHs[XCL];
+#pragma unroll
+  for (int q = 0; q < XCL; ++q) sHs[q] = cluster.map_shared_rank(sH, (rank + q) % XCL);
+
+  const int d = blockIdx.y;  // 0 forward, 1 backward
+  const int r0 = (blockIdx.x / XCL) * TM;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int ug = warp >> 2;         // warpgroup = unit group: local units [8ug, 8ug + 8)
+  const int rg = warp & 3;          // its warp = row group: rows [16rg, 16rg + 16)
+  const int ul = 8 * ug + 2 * tig;  // this thread's pair of units, local
+  const int u = XU * rank + ul;     // and in the whole h
+
+  // the three limbs of this block's gate columns of W^T, once for all T
+  // steps, as wgmma reads them: local row n = 32*g + 8*q + j holds gate q
+  // of local unit 8g + j (gate row q*H + XU*rank + 8g + j), so warpgroup
+  // g's 32 columns are 32 consecutive rows; each row's k in two 64-wide
+  // panels of 128 bytes, their 16-byte chunks swizzled by row (the
+  // hardware's 128-byte swizzle)
+  for (int i = tid; i < 3 * XG * H / 8; i += XNT) {
+    const int l = i / (XG * H / 8), n = (i / (H / 8)) % XG, k = (i % (H / 8)) * 8;
+    const int gq = ((n >> 3) & 3) * H + XU * rank + 8 * (n >> 5) + (n & 7);
+    const __nv_bfloat16* src = wl + (((size_t)l * 2 + d) * G + gq) * H + k;
+    *reinterpret_cast<uint4*>(sW + l * XWLIMB + (k >> 6) * XWPANEL + n * 128 +
+                              ((((k & 63) >> 3) ^ (n & 7)) << 4)) =
+        __ldg(reinterpret_cast<const uint4*>(src));
+  }
+  // the products read W through the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  for (int i = tid; i < NTOK * XG; i += XNT) {
+    const int tk = i / XG, n = i % XG;
+    sTw[tk * XTWS + n] =
+        tokw[((size_t)d * NTOK + tk) * G + (n / XU) * H + XU * rank + n % XU];
+  }
+
+  auto init_val = [&](int i) { return d ? init[i] : 0.0f; };
+  for (int i = tid; i < TM * H / 2; i += XNT) {  // h buffer 0: the limbs of h0
+    const int row = i / (H / 2), k = 2 * (i % (H / 2));
+    __nv_bfloat162 l[3];
+    split3(make_float2(init_val(k), init_val(k + 1)), l);
+#pragma unroll
+    for (int li = 0; li < 3; ++li)
+      *reinterpret_cast<__nv_bfloat162*>(sH + li * XHLIMB + swz(row, k)) = l[li];
+  }
+  if (tid < TM) {
+    const int r = r0 + tid;
+    sGat[tid] = r < B ? gather[r] : -1;
+    sLen[tid] = (packed && r < B) ? lengths[r] : 0;
+    const int v = r < B ? (int)tokens[(size_t)r * T + (d ? T - 1 : 0)] : NTOK - 1;
+    sTok[tid] = min(v, NTOK - 1);
+  }
+
+  // c and h of (row gid/gid+8), each a pair of units u, u + 1
+  float2 c[2], h[2];
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    h[hi] = make_float2(init_val(u), init_val(u + 1));
+    c[hi] = make_float2(init_val(H + u), init_val(H + u + 1));
+  }
+  cluster.sync();  // every block's shared memory is filled before any remote store
+
+  const uint32_t sW_addr = static_cast<uint32_t>(__cvta_generic_to_shared(sW));
+  const uint32_t sH_addr = static_cast<uint32_t>(__cvta_generic_to_shared(sH));
+  // the descriptor of W limb 0's first k16 slice of this warpgroup's 32
+  // columns (4 atoms of 8 rows, 1024 bytes apart); a k16 step moves 32
+  // bytes within a panel, a limb XWLIMB (the descriptor counts 16 bytes)
+  const uint64_t desc0 = wgmma_desc(sW_addr + 32 * 128 * ug, 1024);
+  // ldmatrix row addresses of A, h rows (reads): the warp's 16 rows
+  const int a_row = 16 * rg + (lane & 15);
+  const int a_k = (lane >> 4) * 8;
+  // [gate * 4 + fragment]: W1*h1 in big, the five smaller products in
+  // small (each step's first product overwrites them)
+  float big[16] = {}, small[16] = {};
+
+  for (int t = 0; t < T; ++t) {
+    const int pos = d ? T - 1 - t : t;
+    const int cur = t & 1;
+    // next step's token, stored after this step's work (hides the load)
+    int next_tok = NTOK - 1;
+    if (tid < TM && t + 1 < T && r0 + tid < B)
+      next_tok = tokens[(size_t)(r0 + tid) * T + (d ? pos - 1 : pos + 1)];
+    const uint32_t hcur = sH_addr + cur * XHBUF;
+    const int hnext = (cur ^ 1) * XHBUF;
+    const int* tok = sTok + cur * TM;
+
+    // per k-step, in the plain version's order: W1*h1 into big, then W1*h2,
+    // W2*h1, W1*h3, W3*h1, W2*h2 into small. The h limbs' fragments
+    // alternate between two register sets, so a k-step's loads wait only
+    // for the products of the k-step two before (which read that set)
+    uint32_t a[2][3][4];  // [set][limb][.]
+    wgmma_fence();  // the cell read the accumulators
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      uint32_t(&as)[3][4] = a[kt & 1];
+      if (kt >= 2) wgmma_wait<1>();
+      const uint32_t off = swz(a_row, kt * 16 + a_k);
+#pragma unroll
+      for (int l = 0; l < 3; ++l)
+        ldsm_x4(hcur + l * XHLIMB + off, as[l][0], as[l][1], as[l][2], as[l][3]);
+      wgmma_fence();
+      const uint64_t dk = desc0 + (((kt >> 2) * XWPANEL + (kt & 3) * 32) >> 4);
+      const uint64_t db[3] = {dk, dk + (XWLIMB >> 4), dk + (2 * XWLIMB >> 4)};
+      const int acc = kt > 0;
+      wgmma_m64n32k16(big, as[0], db[0], acc);
+      wgmma_m64n32k16(small, as[1], db[0], acc);
+      wgmma_m64n32k16(small, as[0], db[1], 1);
+      wgmma_m64n32k16(small, as[2], db[0], 1);
+      wgmma_m64n32k16(small, as[0], db[2], 1);
+      wgmma_m64n32k16(small, as[1], db[1], 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+
+    // the cell, on the accumulators in registers; the new h's limbs go to
+    // the next buffer of every block of the cluster
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = 16 * rg + gid + 8 * hi;
+      const float* tw = sTw + tok[row] * XTWS;
+      const bool hold = packed && d && pos >= sLen[row];
+      const bool cap = sGat[row] == pos;
+      const float2 ti = *reinterpret_cast<const float2*>(tw + ul);
+      const float2 tf = *reinterpret_cast<const float2*>(tw + XU + ul);
+      const float2 tg = *reinterpret_cast<const float2*>(tw + 2 * XU + ul);
+      const float2 to = *reinterpret_cast<const float2*>(tw + 3 * XU + ul);
+      float cn[2], hv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int f = 2 * hi + e;
+        float g[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) g[q] = __fadd_rn(big[4 * q + f], small[4 * q + f]);
+        const float x[4] = {e ? ti.y : ti.x, e ? tf.y : tf.x, e ? tg.y : tg.x,
+                            e ? to.y : to.x};
+        cell<EXACT>(g, x, e ? c[hi].y : c[hi].x, cn[e], hv[e]);
+      }
+      if (!hold) {
+        c[hi] = make_float2(cn[0], cn[1]);
+        h[hi] = make_float2(hv[0], hv[1]);
+      }
+      const float2 hn = h[hi];
+      __nv_bfloat162 l[3];
+      split3(hn, l);
+      const int off = hnext + swz(row, u);
+#pragma unroll
+      for (int q = 0; q < XCL; ++q)
+#pragma unroll
+        for (int li = 0; li < 3; ++li)
+          *reinterpret_cast<__nv_bfloat162*>(sHs[q] + off + li * XHLIMB) = l[li];
+      if (cap)
+        *reinterpret_cast<float2*>(out + (size_t)(r0 + row) * (2 * H) + d * H + u) = hn;
+    }
+    if (tid < TM) sTok[(cur ^ 1) * TM + tid] = min(next_tok, NTOK - 1);
+    // every quarter of the new h and the next token are in place in every
+    // block (release/acquire at cluster scope); also keeps any block from
+    // exiting while a peer may still store into it
+    cluster.sync();
+  }
+}
+
 template <int MODE>
 cudaError_t launch(const uint8_t* tokens, const int* gather, const int* lengths,
                    const void* wa, const void* wb, const float* tokw,
@@ -798,9 +968,10 @@ cudaError_t launch(const uint8_t* tokens, const int* gather, const int* lengths,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)EXACT_SMEM);
     if (err != cudaSuccess) return err;
-    bilstm_exact_kernel<<<dim3((B + BT - 1) / BT, 2), NT, EXACT_SMEM, stream>>>(
-        tokens, gather, lengths, static_cast<const float*>(wa), tokw, init, out, B,
-        T, packed);
+    // one cluster of four blocks per (tile, direction)
+    bilstm_exact_kernel<<<dim3(XCL * tiles, 2), XNT, EXACT_SMEM, stream>>>(
+        tokens, gather, lengths, static_cast<const __nv_bfloat16*>(wa), tokw, init,
+        out, B, T, packed);
   }
   return cudaGetLastError();
 }
@@ -816,14 +987,30 @@ int launch_c(const void* tokens, const void* gather, const void* lengths,
       static_cast<cudaStream_t>(stream));
 }
 
+// cudaOccupancyMaxActiveClusters of a cluster kernel (its cluster size
+// from __cluster_dims__, one block per SM)
+template <typename K>
+int max_active_clusters(K kernel, int threads, size_t smem, int cluster, int* clusters) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 2);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
 }  // namespace
 
 extern "C" {
 
+// wl: bf16 [3, 2, G, H], the three limbs of W_hh^T per direction; tokw:
+// exact fp32
 int rd_bilstm_exact(const void* tokens, const void* gather, const void* lengths,
-                    const void* whh, const void* tokw, const void* init, void* out,
+                    const void* wl, const void* tokw, const void* init, void* out,
                     int B, int T, int packed, void* stream) {
-  return launch_c<EXACT>(tokens, gather, lengths, whh, nullptr, tokw, init, out,
+  return launch_c<EXACT>(tokens, gather, lengths, wl, nullptr, tokw, init, out,
                          B, T, packed, stream);
 }
 
@@ -852,18 +1039,15 @@ int rd_bilstm_fast_bf16(const void* tokens, const void* gather,
                              out, B, T, packed, stream);
 }
 
-// How many clusters of the high kernel this card holds at once (each
-// cluster's two blocks on two SMs of one GPC): 2 x that against the SM
-// count is what the cluster's placement leaves idle.
-int rd_high_max_active_clusters(int* clusters) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bilstm_high_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)HIGH_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2, 2);
-  cfg.blockDim = dim3(HNT);
-  cfg.dynamicSmemBytes = HIGH_SMEM;  // cluster size: the kernel's __cluster_dims__
-  return (int)cudaOccupancyMaxActiveClusters(clusters, bilstm_high_kernel, &cfg);
+// How many clusters of the exact (mode 0) or the high (mode 1) kernel this
+// card holds at once, each cluster's blocks on SMs of one GPC: the cluster
+// size times that, against the SM count, is what the placement leaves idle.
+int rd_max_active_clusters(int mode, int* clusters) {
+  if (mode == EXACT)
+    return max_active_clusters(bilstm_exact_kernel, XNT, EXACT_SMEM, XCL, clusters);
+  if (mode == HIGH)
+    return max_active_clusters(bilstm_high_kernel, HNT, HIGH_SMEM, 2, clusters);
+  return (int)cudaErrorInvalidValue;
 }
 
 // the cell floor's micro-kernels, one per mode (read in the SASS only)

@@ -121,17 +121,17 @@ def kernel_library():
         if _kernels is None:
             path, _ = build_kernels()
             lib = ctypes.CDLL(path)
-            # every array is a device pointer (the tensor-core kernels' W is
-            # bf16 [2, G, H]: fast's one, high's two limbs; the rest of their
-            # arrays as exact's)
+            # every array is a device pointer (W_hh goes in as bf16: exact's
+            # three limbs in one [3, 2, G, H], high's two [2, G, H], fast's
+            # one [2, G, H])
             vp, i32 = ctypes.c_void_p, ctypes.c_int
             for name in ("rd_bilstm_exact", "rd_bilstm_fast", "rd_bilstm_fast_bf16"):
                 getattr(lib, name).restype = i32
                 getattr(lib, name).argtypes = [vp] * 7 + [i32, i32, i32, vp]
             lib.rd_bilstm_high.restype = i32
             lib.rd_bilstm_high.argtypes = [vp] * 8 + [i32, i32, i32, vp]
-            lib.rd_high_max_active_clusters.restype = i32
-            lib.rd_high_max_active_clusters.argtypes = [ctypes.POINTER(i32)]
+            lib.rd_max_active_clusters.restype = i32
+            lib.rd_max_active_clusters.argtypes = [i32, ctypes.POINTER(i32)]
             lib.rd_cuda_error_string.restype = ctypes.c_char_p
             lib.rd_cuda_error_string.argtypes = [i32]
             _kernels = lib

@@ -4,9 +4,13 @@
 ``bilstm_logits_pallas`` with four precision modes, each its own
 hand-written Hopper kernel:
 
-  "exact"     fp32 recurrence (fp32 FMA, IEEE sigmoid/tanh). Replaces the
-              Pallas ``_kernel`` in its "x6" mode. Plain version:
-              models/bilstm.bilstm_logits.
+  "exact"     fp32 recurrence: the recurrent product as six bf16 products
+              of 3-limb bf16 splits of h and W_hh on the tensor cores (fp32
+              accumulate), + the exact fp32 token row, IEEE sigmoid/tanh.
+              Replaces the Pallas ``_kernel`` in its "x6" mode (HIGHEST
+              precision, the same six passes on the TPU's matrix unit).
+              Plain version: models/bilstm.bilstm_logits (fp32); the limb
+              arithmetic itself is bilstm_logits_exact_plain.
   "high"      2-limb bf16 split of the recurrent product on the tensor
               cores (three bf16 products, fp32 accumulate) + the exact fp32
               token row, tanh-form sigmoid. Replaces the Pallas
@@ -20,13 +24,16 @@ hand-written Hopper kernel:
               (runtime.compute_dtype = bfloat16). Plain version:
               bilstm_logits_fast_plain(state_dtype=torch.bfloat16).
 
-The three tensor-core kernels (high, fast, fast_bf16) sum each 16-wide k
-block of the recurrent product in the tensor cores' order, so they are not
-bit-identical to their plain versions (which sum k ascending): high's limb
-split, and bf16 rounding of h or of the gates in the fast modes, amplify
-the 1-ulp order difference over T. TC_GATE states how close they are held,
-and why, and tc_gate applies it; each read's logits still depend only on
-its own tokens, bit for bit, whatever batch it sits in.
+All four kernels sum each 16-wide k block of the recurrent product in the
+tensor cores' order, so they are not bit-identical to their plain versions
+(which sum k ascending). exact's three limbs hold all of h and W_hh, so it
+stays within 1e-4 of the fp32 recurrence; in the other three, high's
+2-limb split and bf16 rounding of h or of the gates in the fast modes
+amplify the 1-ulp order difference over T. TC_GATE states how close those
+three are held, and why, and tc_gate applies it. Each read's logits still
+depend only on its own tokens, bit for bit, whatever batch it sits in, and
+with W_hh = 0 (zero_product_params) every kernel equals its plain version
+bit for bit.
 
 A CUDA tensor goes to the kernel or raises; a CPU tensor takes the plain
 version (that is how the CPU tests and the CPU entry point run). The gather
@@ -54,6 +61,7 @@ from ribodetector_tpu_torch.models.bilstm import (
     check_contract,
     gather_index,
     head,
+    lstm_update,
     token_table,
 )
 
@@ -169,6 +177,73 @@ def split_bf16(x):
     hi = x.to(torch.bfloat16).to(torch.float32)
     lo = (x - hi).to(torch.bfloat16).to(torch.float32)
     return hi, lo
+
+
+def split_bf16x3(x):
+    """(x1, x2, x3) limbs of fp32 x: x1 = bf16_rn(x), x2 = bf16_rn(x - x1),
+    x3 = bf16_rn(x - x1 - x2), each returned as an fp32 tensor whose values
+    are exactly bf16. Both subtractions are exact in fp32, and the three
+    limbs hold all 24 bits of the significand: x1 + x2 + x3 == x for 0 and
+    for |x| from 2^-100 up to bf16's largest finite value (~3.39e38; above
+    it x1 is inf)."""
+    x1 = bf16_round(x)
+    r = x - x1
+    x2 = bf16_round(r)
+    return x1, x2, bf16_round(r - x2)
+
+
+# the exact kernel's five smaller limb products, as (h limb, W limb) index
+# pairs in the order it sums them: W1*h2, W2*h1, W1*h3, W3*h1, W2*h2 (with
+# W1*h1, every product whose limb indices add up to at most 4, as the TPU's
+# HIGHEST precision keeps them; the dropped three are ~2^-26 of the product)
+EXACT_SMALL_PRODUCTS = ((1, 0), (0, 1), (2, 0), (0, 2), (1, 1))
+
+
+def exact_product(hl, wl, k_block=1):
+    """The exact kernel's recurrent product from the three limbs of h (hl,
+    [B, K] each) and of W_hh (wl, [K, G] each): W1*h1 summed in one fp32
+    accumulator, the five EXACT_SMALL_PRODUCTS in a second, and the two
+    added after the k loop. The limbs hold bf16 values, so every product is
+    exact in fp32. k_block=1 sums k ascending, one rounding per add;
+    k_block=16 sums each 16-wide block of k as one matrix product per limb
+    pair and adds them in turn, as the kernel's six warpgroup products per
+    k-step do (exact's order yardstick)."""
+    big = torch.zeros((hl[0].shape[0], wl[0].shape[1]), dtype=torch.float32,
+                      device=hl[0].device)
+    small = torch.zeros_like(big)
+    if k_block == 1:
+        for k in range(wl[0].shape[0]):
+            torch.addcmul(big, hl[0][:, k : k + 1], wl[0][k], out=big)
+            for a, b in EXACT_SMALL_PRODUCTS:
+                torch.addcmul(small, hl[a][:, k : k + 1], wl[b][k], out=small)
+        return big + small
+    for k0 in range(0, wl[0].shape[0], k_block):
+        k = slice(k0, k0 + k_block)
+        big = big + hl[0][:, k] @ wl[0][k]
+        for a, b in EXACT_SMALL_PRODUCTS:
+            small = small + hl[a][:, k] @ wl[b][k]
+    return big + small
+
+
+def bilstm_logits_exact_plain(params: BiLSTMParams, tokens, lengths=None, *,
+                              semantics="dense", bwd_init=None, k_block=1):
+    """Plain torch version of the "exact" kernel's arithmetic: per direction
+    and step, gates = exact_product of the three limbs of h and of W_hh (k
+    ascending unless k_block says otherwise) + the exact fp32 token/bias
+    row, then the fp32 cell (torch.sigmoid, as bilstm_logits). It agrees
+    with the fp32 recurrence to about an ulp a step; the kernel is held to
+    that (PLAIN["exact"], within 1e-4), and this version is its order
+    yardstick at k_block=16. The k-ascending sum is slow: 6*hidden
+    elementwise ops per step and direction."""
+    limbs = [split_bf16x3(w) for w in (params.w_hh_f, params.w_hh_b)]
+
+    def cell(h, c, gates_x, d):
+        return lstm_update(exact_product(split_bf16x3(h), limbs[d], k_block)
+                           + gates_x, c)
+
+    last_out = bilstm_last_out(params, tokens, lengths, semantics=semantics,
+                               bwd_init=bwd_init, cell=cell)
+    return head(params, last_out)
 
 
 def high_product(hhi, hlo, whi, wlo, k_block=1):
@@ -317,9 +392,11 @@ PLAIN = {
     "fast_bf16": functools.partial(bilstm_logits_fast_plain,
                                    state_dtype=torch.bfloat16),
 }
-# each tensor-core kernel's yardstick for TC_GATE: its plain version with
-# the recurrent product summed in 16-wide k blocks
+# each kernel's yardstick: the arithmetic of its plain version with the
+# recurrent product summed in 16-wide k blocks (for high and the fast
+# modes TC_GATE's; for exact what the order alone moves, beside its gate)
 YARDSTICK = {
+    "exact": functools.partial(bilstm_logits_exact_plain, k_block=16),
     "high": functools.partial(bilstm_logits_high_plain, k_block=16),
     "fast": functools.partial(PLAIN["fast"], k_block=16),
     "fast_bf16": functools.partial(PLAIN["fast_bf16"], k_block=16),
@@ -329,10 +406,11 @@ YARDSTICK = {
 def zero_product_params(params: BiLSTMParams):
     """params with W_hh zero: a kernel's recurrent product is then exactly
     zero, whatever order it sums in, and the kernel must equal its plain
-    version bit for bit. This checks the cell, the token rows, hold and
-    capture apart from the order, including what TC_GATE cannot see: a
-    change that moves each step by about an ulp, as a change of order does
-    (the exp form of high's sigmoid). Nonzero W_hh gives no such weights:
+    version (and its yardstick) bit for bit. This checks the cell, the
+    token rows, hold and capture apart from the order, including what
+    neither TC_GATE nor exact's 1e-4 can see: a change that moves each step
+    by about an ulp, as a change of order does (the exp form of high's
+    sigmoid, the tanh form of exact's). Nonzero W_hh gives no such weights:
     the tensor cores round an inexact sum their own way, which the plain
     version does not reproduce."""
     return params._replace(w_hh_f=torch.zeros_like(params.w_hh_f),
@@ -343,6 +421,48 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+# each kernel's W_hh: the shapes of its contiguous bf16 tensors (limb,
+# direction, gate column, k)
+WEIGHT_SHAPES = {
+    "exact": [(3, 2, 4 * HIDDEN, HIDDEN)],
+    "high": [(2, 4 * HIDDEN, HIDDEN)] * 2,
+    "fast": [(2, 4 * HIDDEN, HIDDEN)],
+    "fast_bf16": [(2, 4 * HIDDEN, HIDDEN)],
+}
+
+
+def kernel_weights(mode, whh):
+    """W_hh per direction ([2, H, G] fp32) in the layout `mode`'s kernel
+    takes (WEIGHT_SHAPES), a tuple of contiguous bf16 tensors, each W^T per
+    direction ([.., 2, G, H]: gate column, then k): exact one [3, 2, G, H]
+    of the three limbs (split_bf16x3); high two [2, G, H], hi and lo
+    (split_bf16); the fast modes one [2, G, H], bf16_rn(W). The limbs hold
+    bf16 values, so the cast rounds nothing. Checked by check_weight_layout
+    before it is returned."""
+    def t(w):
+        return w.transpose(-1, -2).to(torch.bfloat16).contiguous()
+
+    if mode == "exact":
+        weights = (t(torch.stack(split_bf16x3(whh))),)
+    elif mode == "high":
+        weights = tuple(t(w) for w in split_bf16(whh))
+    else:
+        weights = (t(whh),)
+    check_weight_layout(mode, weights)
+    return weights
+
+
+def check_weight_layout(mode, weights):
+    """Raises ValueError unless `weights` is what `mode`'s kernel reads
+    (WEIGHT_SHAPES, contiguous bf16): a kernel reads raw device memory and
+    cannot tell a wrong shape, type or stride itself."""
+    want = WEIGHT_SHAPES[mode]
+    got = [(tuple(w.shape), w.dtype, w.is_contiguous()) for w in weights]
+    if got != [(s, torch.bfloat16, True) for s in want]:
+        raise ValueError(f"the {mode} kernel takes W_hh as contiguous bf16 of "
+                         f"shapes {want} (limb, direction, gate, k); got {got}")
+
+
 def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
                        semantics="dense", mode="high", bwd_init=None):
     """[B, T] tokens -> [B, 2] fp32 logits through the selected kernel.
@@ -350,7 +470,9 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
     Same contract as bilstm_logits: hidden must be 128, semantics dense or
     packed, packed needs lengths, bwd_init is dense-only, B = 0 returns
     [0, 2], and packed lengths are clamped to [0, T-1]. On the card the
-    tokens must be a contiguous uint8 [B, T] CUDA tensor.
+    tokens must be a contiguous uint8 [B, T] CUDA tensor, and W_hh goes to
+    the kernel as kernel_weights lays it out (exact: its three bf16 limbs,
+    transposed, as one [3, 2, G, H]), checked against WEIGHT_SHAPES.
     """
     if params.w_hh_f.shape[0] != HIDDEN:
         raise ValueError(
@@ -395,13 +517,10 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
         init[1] = bwd_init[1].reshape(HIDDEN).to(device=dev, dtype=torch.float32)
     tokw = torch.stack([token_table(params.w_ih_f, params.b_f),
                         token_table(params.w_ih_b, params.b_b)]).contiguous()
-    whh = torch.stack([params.w_hh_f, params.w_hh_b]).contiguous()
+    weights = kernel_weights(mode, torch.stack([params.w_hh_f, params.w_hh_b]))
     fast = mode in ("fast", "fast_bf16")
-    if fast:
-        # the single pass's operands: the token table as bf16 values stored
-        # as fp32, W_hh transposed to bf16 [2, G, H] for the tensor cores
+    if fast:  # the single pass's token table: bf16 values stored as fp32
         tokw = bf16_round(tokw)
-        whh = whh.transpose(1, 2).to(torch.bfloat16).contiguous()
     out = torch.empty((B, 2 * HIDDEN), dtype=torch.float32, device=dev)
 
     from ribodetector_tpu_torch.ops.build import kernel_library
@@ -409,21 +528,10 @@ def bilstm_logits_cuda(params: BiLSTMParams, tokens, lengths=None, *,
     lib = kernel_library()
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if mode == "high":
-            # both limbs of W_hh, transposed to bf16 [2, G, H] for the
-            # tensor cores (exactly bf16 values: the cast rounds nothing)
-            whi, wlo = (w.transpose(1, 2).to(torch.bfloat16).contiguous()
-                        for w in split_bf16(whh))
-            err = lib.rd_bilstm_high(
-                _ptr(tokens), _ptr(gather), _ptr(lengths), _ptr(whi),
-                _ptr(wlo), _ptr(tokw), _ptr(init), _ptr(out), B, T,
-                int(packed), stream,
-            )
-        else:
-            err = getattr(lib, f"rd_bilstm_{mode}")(
-                _ptr(tokens), _ptr(gather), _ptr(lengths), _ptr(whh),
-                _ptr(tokw), _ptr(init), _ptr(out), B, T, int(packed), stream,
-            )
+        err = getattr(lib, f"rd_bilstm_{mode}")(
+            _ptr(tokens), _ptr(gather), _ptr(lengths), *map(_ptr, weights),
+            _ptr(tokw), _ptr(init), _ptr(out), B, T, int(packed), stream,
+        )
     if err != 0:
         raise RuntimeError(
             f"bilstm {mode} kernel launch failed: "

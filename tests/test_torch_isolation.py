@@ -68,13 +68,41 @@ def test_stray_name_rules():
     assert not JAX_IMPORT.search("import jaxlib_free_name_is_fine")
 
 
+CARD_TESTS = sorted((REPO / "tests").glob("test_torch_card_*.py"))
+
+
 def test_sources_hold_no_stray_import():
-    sources = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "ab_main.py"]
+    sources = (list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "ab_main.py"]
+               + CARD_TESTS)
     assert len(sources) > 20
     for path in sources:
         text = path.read_text()
         assert not JAX_IMPORT.search(text), path
         assert not STRAY_IMPORT.search(text), path
+
+
+def test_card_tests_load_no_jax():
+    """The card tests run on the card's machine without tests/conftest.py
+    (which imports jax): importing each loads neither jax nor the JAX
+    package."""
+    names = [p.stem for p in CARD_TESTS]
+    assert {"test_torch_card_kernels", "test_torch_card_train",
+            "test_torch_card_dispatch"} <= set(names)
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(REPO / 'tests')!r})\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
+    assert not [m for m in loaded if STRAY.match(m)]
+    assert set(names) <= set(loaded)
 
 
 def test_no_prebuilt_binary_is_tracked():

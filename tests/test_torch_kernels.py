@@ -23,17 +23,18 @@ The two "fast" kernels (the Pallas x1 pass):
               Precision.DEFAULT, so the JAX side is the fp32 recurrence and
               only the fast class's argmax bound applies.
 
-The three tensor-core kernels (high, fast, fast_bf16) sum their product
-in the tensor cores' own order, so on the card they are held to their
-plain versions by lstm_cuda.TC_GATE (test_high_gate_holds_a_summation_order
-and test_fast_gate_holds_a_summation_order ground it; the planted-fault
-tests show what it catches) and, bit for bit, with W_hh = 0
-(lstm_cuda.zero_product_params, where no summation order changes the
-product);
-exact is held to 1e-4 there. The plain high version summed in 16-wide k
-blocks (the yardstick) is held to the Pallas x3 kernel like the plain one.
+All four kernels sum their product in the tensor cores' own order. On the
+card high, fast and fast_bf16 are held to their plain versions by
+lstm_cuda.TC_GATE (test_high_gate_holds_a_summation_order and
+test_fast_gate_holds_a_summation_order ground it; the planted-fault tests
+show what it catches), exact to 1e-4 (tests/test_torch_exact.py), and all
+four, bit for bit, with W_hh = 0 (lstm_cuda.zero_product_params, where no
+summation order changes the product). The plain high version summed in
+16-wide k blocks (the yardstick) is held to the Pallas x3 kernel like the
+plain one.
 
-Tests of the CUDA kernels themselves need the card and skip here.
+Tests of the CUDA kernels themselves need the card: they live in the
+jax-free tests/test_torch_card_kernels.py.
 """
 
 import os
@@ -547,14 +548,15 @@ def test_gate_at_t300_against_a_planted_fault(params, fault_reads_t300, mode, fa
     assert (r["mean_abs"] > r["mean_abs_limit"]) is sees, r
 
 
-@pytest.mark.parametrize("mode", ["high", "fast", "fast_bf16"])
+@pytest.mark.parametrize("mode", ["high", "fast", "fast_bf16", "exact"])
 def test_zero_product_weights_make_the_order_irrelevant(params, mode, one_thread):
     """With W_hh = 0 the plain version summed in 16-wide k blocks equals
     the one summed k ascending, bit for bit, dense and packed, with and
     without a backward init (on the npz weights they differ): the product
     is exactly zero in any order, so the tensor-core kernels must match
     their plain versions bit for bit there (chip_smoke.py holds them to
-    the blocked form, the cheaper one)."""
+    the blocked form, the cheaper one). For exact the blocked form is the
+    six-limb arithmetic and the plain version the fp32 recurrence."""
     _, tp = params
     rng = np.random.default_rng(41)
     tok = torch.from_numpy(_random_token_reads(rng, 256, 100))
@@ -658,97 +660,3 @@ def test_wrapper_length_clamp(params, batch, mode):
         tp, tok, torch.full((B,), 10 * T, dtype=torch.int32),
         semantics="packed", mode=mode)
     torch.testing.assert_close(over, at_t, rtol=0, atol=0)
-
-
-# ---------------------------------------------------------------- on the card
-
-
-@pytest.fixture
-def cuda_params(ref_params_path):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return tb.load_params(ref_params_path, "cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", lstm_cuda.MODES)
-@pytest.mark.parametrize("semantics,k", [("dense", None), ("packed", None),
-                                         ("dense", 36)])
-def test_kernel_matches_plain_on_card(cuda_params, mode, semantics, k):
-    _check_kernel_on_card(cuda_params, mode, semantics, k, 64)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", lstm_cuda.MODES)
-@pytest.mark.parametrize("semantics,k", [("dense", 44), ("packed", None)])
-def test_kernel_matches_plain_at_t300_on_card(cuda_params, mode, semantics, k):
-    """The -l 300 grid's full bucket: T = 300 dense with the 44-step
-    backward init that the 256 bucket's reads start from, and packed."""
-    _check_kernel_on_card(cuda_params, mode, semantics, k, 300)
-
-
-def _check_kernel_on_card(cuda_params, mode, semantics, k, Tc):
-    rng = np.random.default_rng(9)
-    Bc = 2048 + 37
-    tok = torch.from_numpy(rng.integers(0, 5, (Bc, Tc)).astype(np.uint8)).cuda()
-    lens = torch.from_numpy(rng.integers(0, Tc + 2, Bc).astype(np.int32)).cuda()
-    init = None
-    if k:
-        dt = torch.bfloat16 if mode == "fast_bf16" else torch.float32
-        init = tb.zero_prefix_state(cuda_params, k, compute_dtype=dt)
-    plain = lstm_cuda.PLAIN[mode]
-    lstm_cuda.reset_launches()
-    got = lstm_cuda.bilstm_logits_cuda(cuda_params, tok, lens, semantics=semantics,
-                                       mode=mode, bwd_init=init)
-    torch.cuda.synchronize()
-    assert lstm_cuda.LAUNCH_COUNTS == {(tok.device.index, mode, Tc): 1}
-    ref = plain(cuda_params, tok, lens, semantics=semantics, bwd_init=init)
-    got, ref = got.cpu().numpy(), ref.cpu().numpy()
-    if mode not in lstm_cuda.TC_GATE:
-        _assert_close(got, ref)
-        return
-    # the tensor cores sum in their own order: the stated gate, beside the
-    # yardstick on the same reads
-    yard = lstm_cuda.YARDSTICK[mode](cuda_params, tok, lens, semantics=semantics,
-                                     bwd_init=init)
-    assert np.isfinite(got).all()
-    r = lstm_cuda.tc_gate(mode, got, ref, yard.cpu().numpy())
-    assert r["within_gate"], r
-    # and bit for bit where no order can change the product
-    p0 = lstm_cuda.zero_product_params(cuda_params)
-    assert torch.equal(
-        lstm_cuda.bilstm_logits_cuda(p0, tok, lens, semantics=semantics,
-                                     mode=mode, bwd_init=init),
-        plain(p0, tok, lens, semantics=semantics, bwd_init=init))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["high", "fast", "fast_bf16"])
-@pytest.mark.parametrize("semantics", ["dense", "packed"])
-def test_tc_kernels_are_row_invariant_on_card(cuda_params, mode, semantics):
-    """A read's logits depend only on its own tokens, bit for bit: the
-    same reads shuffled, and some of them inside a batch of another size."""
-    rng = np.random.default_rng(13)
-    Bc, Tc = 1024 + 5, 100
-    tok = torch.from_numpy(_random_token_reads(rng, Bc, Tc)).cuda()
-    lens = torch.from_numpy(rng.integers(1, Tc + 1, Bc).astype(np.int32)).cuda()
-    other = torch.from_numpy(_random_token_reads(rng, 77, Tc)).cuda()
-    perm = torch.from_numpy(rng.permutation(Bc)).cuda()
-    kw = dict(semantics=semantics, mode=mode)
-    run = lstm_cuda.bilstm_logits_cuda
-    base = run(cuda_params, tok, lens, **kw)
-    assert torch.equal(run(cuda_params, tok[perm].contiguous(), lens[perm], **kw),
-                       base[perm])
-    mixed = run(cuda_params, torch.cat([other, tok[:300]]),
-                torch.cat([lens[:77], lens[:300]]), **kw)
-    assert torch.equal(mixed[77:], base[:300])
-
-
-@pytest.mark.cuda
-def test_kernel_refuses_what_it_does_not_take(cuda_params):
-    tok = torch.zeros((8, 10), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="uint8"):
-        lstm_cuda.bilstm_logits_cuda(cuda_params, tok)
-    tok8 = torch.zeros((10, 8), dtype=torch.uint8, device="cuda").T
-    with pytest.raises(ValueError, match="contiguous"):
-        lstm_cuda.bilstm_logits_cuda(cuda_params, tok8)

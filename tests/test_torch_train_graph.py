@@ -13,8 +13,8 @@ arithmetic is the same: the per-step losses, the parameters after fit,
 Adam's step count (epochs x whole batches: no update added by a capture,
 none dropped) and the losses that fit logs (the per-step ones, not one
 static tensor repeated). Torch runs on one intra-op thread: two CPU runs
-of the same step agree bit for bit only then. The test marked cuda holds
-the captured graph against the eager step on the card.
+of the same step agree bit for bit only then. tests/test_torch_card_train.py
+holds the captured graph against the eager step on the card.
 """
 
 import json
@@ -282,33 +282,3 @@ def test_dp2_graph_ready_matches_eager(ref_params_path):
     # the ranks' losses are over their own rows; the params are the same
     assert reports[0]["True"]["losses"] != reports[1]["True"]["losses"]
     assert reports[0]["True"]["params"] == reports[1]["True"]["params"]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("semantics,compute_dtype,T", [
-    ("dense", "float32", 100), ("packed", "float32", 100), ("dense", "bfloat16", 100),
-    ("dense", "float32", 40)])
-def test_captured_step_matches_eager_on_card(ref_params_path, semantics, compute_dtype, T):
-    """On the card at batch 200: the captured graph (one capture, a replay
-    a step) against the eager step over 12 batches, bit for bit (the same
-    kernels in the same order); fit frees its graph when it returns."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    tok, lengths, labels = (torch.from_numpy(x).cuda() for x in tt.synthetic_dataset(
-        np.random.default_rng(2), 12 * 200, max_len=T))
-    labels = labels.long()
-    cfg = tt.TrainConfig(learning_rate=LR, semantics=semantics, compute_dtype=compute_dtype)
-    got = {}
-    for graph in (False, None):
-        model = tb.BiLSTM(tb.load_params(ref_params_path, "cuda"))
-        step = tt.make_train_step(cfg, tt.make_optimizer(cfg, model.parameters()), graph=graph)
-        tt.reset_step_counts()
-        losses = [step(model.params(), tok, lengths, labels,
-                       torch.arange(i, i + 200, device="cuda")) for i in range(0, 2400, 200)]
-        step.release()
-        got[graph] = (torch.stack(losses).cpu(), [p.detach().cpu() for p in model.params()],
-                      tt.step_counts())
-    assert torch.equal(got[None][0], got[False][0])
-    _assert_same_params(got[None][1], got[False][1])
-    assert got[None][2] == {"captures": 1, "replays": 12, "eager": 0, "released": 1}
-    assert got[False][2]["eager"] == 12
