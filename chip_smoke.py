@@ -84,15 +84,19 @@ Phases, one JSON line each; any failure exits non-zero:
             (init_params, seed 0) at -l 40 over 3 epochs; each CLI run's
             train steps (trainer.step_counts: one capture for its one
             shape, a replay for each optimizer update, epochs x whole
-            batches of them, the graph released when fit returned);
-            the graphed step (the CLI's) and the eager one side by side
-            from the same weights over the same 22 batches: steps/s and
-            reads/s over the last 20, their per-step losses and params
-            bit for bit, and for one step of each (a torch.profiler
-            trace) the card's kernels and their summed time, and the
-            host's kernel and graph launches; the same two steps over 6
-            batches packed, in bf16 compute, at T = 40 and at hidden 64,
-            bit for bit, one capture each; eval reads/s (over the
+            batches of them, the graph released when fit returned; the
+            updates are the optimizer's own device count, as the update
+            runs inside the graph); the graphed step (the CLI's: the
+            batch's gather, forward, backward and the Adam update in one
+            graph) and the eager one side by side from the same weights
+            over the same 22 batches: steps/s and reads/s over the last
+            20, their per-step losses, params and optimizer state bit for
+            bit, and for one step of each (a torch.profiler trace) the
+            card's kernels and their summed time, and the host's kernel
+            and graph launches (the graphed step: one graph launch, no
+            kernel launch); the same two steps over 6 batches packed, in
+            bf16 compute, at T = 40 and at hidden 64, bit for bit, one
+            capture each; eval reads/s (over the
             validation set in one launch, and over 65536 reads in 16);
             one batch's gradients
             on the card against the CPU (max-abs <= 1e-4 relative);
@@ -105,16 +109,24 @@ Phases, one JSON line each; any failure exits non-zero:
             running train.__main__.worker (what the CLI's main spawns per
             card) with its steps timed and its launches counted: with two
             cards or more, the worker over every card in an NCCL group at
-            --tp 1 and --tp 2, and the training CLI itself at --tp 2; with
-            one card, two ranks on it over gloo at dp = 2 and at tp = 2;
+            --tp 1 and --tp 2 (both captured whole: the dp average and
+            tp's collectives inside the graph), the captured rank step
+            against the eager one side by side at --tp 2 (SIDE_CHILD:
+            losses, params and optimizer state bit for bit on every rank,
+            one graph launch and no kernel launch a step), and the
+            training CLI itself at --tp 2; with one card, two ranks on it
+            over gloo at dp = 2 (forward and backward replayed, the
+            average and the update eager after it) and at tp = 2 (eager);
             each run 1 epoch fine-tuning the shipped weights on the train
-            phase's files (-l 100, batch 200): the CLI's mesh lines, the
-            losses and best.npz against the train phase's one-process run
-            (losses 1e-4 relative, parameters within lr), exact launched
-            once an epoch on every rank and nothing else, every rank's
-            train steps (at tp = 1 graphed: one capture, a replay for each
-            update; at tp > 1 eager), best.npz through detect (probe +
-            high, against plain exact labels), and each rank's step time,
+            phase's files (-l 100, batch 200; the gloo tp = 2 run, at
+            ~740 ms an eager step, on its 2 x 2048-read files against a
+            one-process run over them): the CLI's mesh lines, the losses
+            and best.npz against the one-process run (losses 1e-4
+            relative, parameters within lr), exact launched once an epoch
+            on every rank and nothing else, every rank's train steps
+            (graphed: one capture, a replay for each update; at tp > 1
+            over gloo eager), best.npz through detect (probe + high,
+            against plain exact labels), and each rank's step time,
             steps/s and train reads/s beside the total
   serve     the JSONL job server (serve.main, --precision fast,
             --concurrency 2) over a 2 x 262144-read paired gz job, the same
@@ -1228,6 +1240,7 @@ def phase_configs(params, tmp, main_inputs, main_logits, main_wall, n=65536):
 
 TRAIN_READS = 8192  # per class: 2 x 8192 training reads
 VAL_READS = 1024  # per class
+SMALL_READS = 2048  # per class: the custom width's and gloo tp = 2's training reads
 EVAL_READS = 65536  # the eval rate's set: the validation set repeated, 16 launches
 TRAIN_EPOCHS = 4
 RANDOM_INIT_EPOCHS = 3  # the -l 40 run from a random init
@@ -1254,7 +1267,7 @@ def write_fasta(path, tokens, lengths):
 def labeled_fasta(tmp, rng, max_len=100):
     """FASTA files of the port's synthetic_dataset (label 1 iff the motif
     was planted) at -l max_len: {name: path} for 2 x TRAIN_READS training and
-    2 x VAL_READS validation reads, and 2 x 2048 training reads for the
+    2 x VAL_READS validation reads, and 2 x SMALL_READS training reads for the
     custom width; plus the training and validation sets' arrays (the
     gradient check and the step timing)."""
     from ribodetector_tpu_torch.train.trainer import synthetic_dataset
@@ -1268,7 +1281,7 @@ def labeled_fasta(tmp, rng, max_len=100):
     for y, name in ((1, "rrna"), (0, "norrna")):
         idx = by_label[y]
         for split, sl in (("train", slice(0, TRAIN_READS)), ("val", slice(TRAIN_READS, need)),
-                          ("small", slice(0, 2048))):
+                          ("small", slice(0, SMALL_READS))):
             paths[f"{split}_{name}"] = os.path.join(tmp, f"{split}_{name}_l{max_len}.fa")
             write_fasta(paths[f"{split}_{name}"], tok[idx[sl]], lengths[idx[sl]])
     sets = []
@@ -1278,17 +1291,21 @@ def labeled_fasta(tmp, rng, max_len=100):
     return paths, sets[0], sets[1]
 
 
-def counting_updates():
-    """A list whose one element counts every optimizer update in the
-    process (torch.optim's global post-step hook), and the hook's handle."""
-    from torch.optim.optimizer import register_optimizer_step_post_hook
+def counting_optimizers():
+    """trainer.make_optimizer wrapped to keep every optimizer it makes ->
+    (that list, a function that unwraps it). A run's updates are their
+    device step counts (optim.Adam.steps): the update runs inside the
+    replayed graph, where no host hook sees it."""
+    from ribodetector_tpu_torch.train import trainer
 
-    updates = [0]
+    made, make = [], trainer.make_optimizer
 
-    def hook(*_):
-        updates[0] += 1
+    def spy(*args, **kw):
+        made.append(make(*args, **kw))
+        return made[-1]
 
-    return updates, register_optimizer_step_post_hook(hook)
+    trainer.make_optimizer = spy
+    return made, lambda: setattr(trainer, "make_optimizer", make)
 
 
 def train_cli(paths, out, extra, max_len=100):
@@ -1305,7 +1322,7 @@ def train_cli(paths, out, extra, max_len=100):
 
     lstm_cuda.reset_launches()
     trainer.reset_step_counts()
-    updates, hook = counting_updates()
+    made, unwrap = counting_optimizers()
     torch.cuda.synchronize()
     allocated = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1315,9 +1332,9 @@ def train_cli(paths, out, extra, max_len=100):
                "cuda")
         torch.cuda.synchronize()
     finally:
-        hook.remove()
+        unwrap()
     wall = time.perf_counter() - t0
-    steps = {**trainer.step_counts(), "updates": updates[0],
+    steps = {**trainer.step_counts(), "updates": sum(o.steps() for o in made),
              "left_allocated_bytes": torch.cuda.memory_allocated() - allocated}
     return wall, lstm_cuda.launches(), steps
 
@@ -1363,9 +1380,10 @@ def side_by_side(tag, init, cfg, batch, steps, profile=False):
     onward of the device tensors `batch`), the steps after the first 2
     timed (host clock around work that ends in a synchronize); with
     profile, one more step of each under torch.profiler. Checks their
-    per-step losses and params bit for bit, and that the graphed step
-    captured once and replayed every step -> {kind: {"step_ms", "steps"
-    (trainer.step_counts()), and profile_step's keys}}."""
+    per-step losses, params and optimizer state bit for bit, and that the
+    graphed step captured once and replayed every step, one update each
+    -> {kind: {"step_ms", "steps" (trainer.step_counts() with the
+    optimizer's updates), and profile_step's keys}}."""
     import torch
 
     from ribodetector_tpu_torch.models.bilstm import BiLSTM
@@ -1377,8 +1395,8 @@ def side_by_side(tag, init, cfg, batch, steps, profile=False):
     out, runs = {}, {}
     for kind, graph in (("eager", False), ("graphed", None)):
         model = BiLSTM(init)
-        step = trainer.make_train_step(cfg, trainer.make_optimizer(cfg, model.parameters()),
-                                       graph=graph)
+        opt = trainer.make_optimizer(cfg, model.parameters())
+        step = trainer.make_train_step(cfg, opt, graph=graph)
         trainer.reset_step_counts()
 
         def one(i):
@@ -1390,8 +1408,9 @@ def side_by_side(tag, init, cfg, batch, steps, profile=False):
         losses += [one(i) for i in range(2, steps)]
         torch.cuda.synchronize()
         out[kind] = {"step_ms": 1e3 * (time.perf_counter() - t0) / (steps - 2),
-                     "steps": trainer.step_counts()}
-        runs[kind] = (torch.stack(losses).cpu(), [p.detach().cpu() for p in model.params()])
+                     "steps": {**trainer.step_counts(), "updates": opt.steps()}}
+        runs[kind] = (torch.stack(losses).cpu(),
+                      [p.detach().cpu() for p in (*model.params(), opt.mu, opt.nu)])
         if profile:
             out[kind].update(profile_step(lambda: one(steps)))
         step.release()
@@ -1401,13 +1420,19 @@ def side_by_side(tag, init, cfg, batch, steps, profile=False):
           f"{el.tolist()}, params max-abs "
           f"{max(float((a - b).abs().max()) for a, b in zip(gp, ep))}")
     check(out["graphed"]["steps"] == {"captures": 1, "replays": steps, "eager": 0,
-                                      "released": 0}
-          and out["eager"]["steps"]["eager"] == steps,
+                                      "released": 0, "updates": steps}
+          and out["eager"]["steps"]["eager"] == out["eager"]["steps"]["updates"] == steps,
           f"{tag}: the side-by-side steps ran as {out}")
     return out
 
 
 STEP_BATCHES = 22  # 2 warm-up steps (the graph's first captures) + 20 timed
+# the graphed step before its update went into the graph (forward and
+# backward replayed, then torch.optim's eager Adam), as PERF.md records
+# it on an NVIDIA H100 80GB HBM3 at 700 W; emitted beside this run's
+GRAPHED_BEFORE_UPDATE = {"step_ms": [25.09, 26.03], "device_kernels_per_step": 8828,
+                         "device_busy_share": [0.881, 0.919],
+                         "host_kernel_launches_per_step": 10}
 
 
 def step_rates(params, data, val):
@@ -1441,9 +1466,9 @@ def step_rates(params, data, val):
                       f"{prefix}host_kernel_launches_per_step": r["host_kernel_launches"],
                       f"{prefix}host_graph_launches_per_step": r["host_graph_launches"],
                       f"{kind}_step_counts": r["steps"]})
-    check(rates["host_graph_launches_per_step"] == 1 and rates["host_kernel_launches_per_step"]
-          < rates["eager_host_kernel_launches_per_step"] / 100,
-          f"the graphed step did not go out as one graph launch: {rates}")
+    check(rates["host_graph_launches_per_step"] == 1
+          and rates["host_kernel_launches_per_step"] == 0,
+          f"the graphed step did not go out as one graph launch alone: {rates}")
     eval_step = make_eval_step(cfg)
     big = tuple(np.tile(x, (EVAL_READS // len(val[2]),) + (1,) * (x.ndim - 1)) for x in val)
     for name, reads in (("eval_reads_per_s_one_launch", val), ("eval_reads_per_s", big)):
@@ -1573,7 +1598,8 @@ def phase_train(tmp):
          epochs=TRAIN_EPOCHS, batch=TRAIN_BATCH, lr=TRAIN_LR, init="shipped weights",
          val_acc_before=init_acc, wall_s=wall, data_gen_s=gen_s,
          epoch_train_loss=losses, best_epoch=best["epoch"],
-         best_metrics=best["metrics"], launches=launches, steps=steps, **rates)
+         best_metrics=best["metrics"], launches=launches, steps=steps, **rates,
+         graphed_before_update=GRAPHED_BEFORE_UPDATE)
     check_steps("-l 100", steps, TRAIN_EPOCHS * (2 * TRAIN_READS // TRAIN_BATCH))
     check(init_acc < 0.6, f"the shipped weights already reach val acc {init_acc}")
     check(losses[-1] < losses[0], f"the train loss did not fall: {losses}")
@@ -1649,12 +1675,12 @@ def phase_train(tmp):
     bad = got != want
     kernel = resolved_kernel(pred)["kernel"]
     new_markers = (set(os.listdir(marker_dir)) if os.path.isdir(marker_dir) else set()) - markers
-    emit("train", run="hidden64", reads=2 * 2048, epochs=1, wall_s=wall64,
+    emit("train", run="hidden64", reads=2 * SMALL_READS, epochs=1, wall_s=wall64,
          launches=launches64, steps=steps64, detect_wall_s=dwall, detect_launches=dl,
          kernel=kernel, pairs=n, mismatches=int(bad.sum()),
          mismatches_m5e_3=int(bad[margin >= 5e-3].sum()),
          counts={str(k): int((got == k).sum()) for k in (0, 1, -1)})
-    check_steps("--hidden 64", steps64, 2 * 2048 // TRAIN_BATCH)
+    check_steps("--hidden 64", steps64, 2 * SMALL_READS // TRAIN_BATCH)
     check(not any(launches64.values()) and not any(dl.values()),
           f"a kernel ran at hidden 64: train {launches64}, detect {dl}")
     check(kernel == "plain" and pred.kernel == "plain", f"hidden 64 resolved to {kernel}")
@@ -1663,25 +1689,26 @@ def phase_train(tmp):
           "hidden 64: partition disagrees with the plain recurrence at margin >= 5e-3")
     emit("train", run="phase", wall_s=time.perf_counter() - t0)
     return {"paths": paths, "out": out, "inputs": inputs, "seqs": seqs,
-            "step_ms": rates["train_step_ms"]}
+            "step_ms": rates["train_step_ms"], "rrna": paths["train_rrna"],
+            "norrna": paths["train_norrna"], "reads": 2 * TRAIN_READS}
 
 
 DIST_EPOCHS = 1  # epochs of each train_dist run (epoch 0 of the train phase's run)
 # one rank of a multi-device training run: train.__main__.worker (what the
 # CLI's main spawns on each card), with each train step timed (synchronized
 # before and after), the rank's kernel launches, train steps and optimizer
-# updates counted; its last stdout line is a JSON object with those and the
-# lines the CLI printed
+# updates (the optimizers' device counts) counted; its last stdout line is
+# a JSON object with those and the lines the CLI printed
 RANK_CHILD = """
 import contextlib, io, json, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
-from torch.optim.optimizer import register_optimizer_step_post_hook
 from ribodetector_tpu_torch.ops import lstm_cuda
 from ribodetector_tpu_torch.train import trainer
 from ribodetector_tpu_torch.train.__main__ import worker
 a, rank = json.loads(sys.argv[2]), int(sys.argv[3])
-steps, updates, make = [], [0], trainer.make_train_step
+steps, made = [], []
+make, make_optimizer = trainer.make_train_step, trainer.make_optimizer
 
 
 class Timed:
@@ -1700,26 +1727,28 @@ class Timed:
         self.step.release()
 
 
-def count(*_):
-    updates[0] += 1
+def counted(*args, **kw):
+    made.append(make_optimizer(*args, **kw))
+    return made[-1]
 
 
 trainer.make_train_step = lambda *args, **kw: Timed(make(*args, **kw))
-register_optimizer_step_post_hook(count)
+trainer.make_optimizer = counted
 printed = io.StringIO()
 t0 = time.perf_counter()
 with contextlib.redirect_stdout(printed):
     worker(rank, a["world"], a["tp"], a["backend"], a["device"], a["argv"], a["init_method"])
 print(json.dumps({"rank": rank, "wall_s": time.perf_counter() - t0, "step_s": steps,
                   "launches": lstm_cuda.launches(),
-                  "steps": {**trainer.step_counts(), "updates": updates[0]},
+                  "steps": {**trainer.step_counts(),
+                            "updates": sum(o.steps() for o in made)},
                   "stdout": printed.getvalue().splitlines()}), flush=True)
 """
 
 
 def dist_argv(ref, out, tp):
     paths = ref["paths"]
-    return ["--rrna", paths["train_rrna"], "--norrna", paths["train_norrna"],
+    return ["--rrna", ref["rrna"], "--norrna", ref["norrna"],
             "--val-rrna", paths["val_rrna"], "--val-norrna", paths["val_norrna"],
             "-l", "100", "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
             "--epochs", str(DIST_EPOCHS), "--init", NPZ, "--out", out, "--tp", str(tp)]
@@ -1740,7 +1769,27 @@ def dist_reference(tmp):
     emit("train_dist", run="one_process_reference", epochs=DIST_EPOCHS, wall_s=wall,
          steps=steps)
     check_steps("one process", steps, DIST_EPOCHS * (2 * TRAIN_READS // TRAIN_BATCH))
-    return {"paths": paths, "out": out, "inputs": inputs, "seqs": seqs, "step_ms": None}
+    return {"paths": paths, "out": out, "inputs": inputs, "seqs": seqs, "step_ms": None,
+            "rrna": paths["train_rrna"], "norrna": paths["train_norrna"],
+            "reads": 2 * TRAIN_READS}
+
+
+def small_reference(tmp, ref):
+    """The one-process run of the training CLI for DIST_EPOCHS on the
+    current card over the train phase's 2 x SMALL_READS files: the
+    reference of the dist runs that take them."""
+    paths = ref["paths"]
+    out = os.path.join(tmp, "train128_small")
+    wall, _, steps = train_cli(
+        {"rrna": paths["small_rrna"], "norrna": paths["small_norrna"]}, out,
+        ["--val-rrna", paths["val_rrna"], "--val-norrna", paths["val_norrna"],
+         "--epochs", str(DIST_EPOCHS), "--init", NPZ])
+    emit("train_dist", run="one_process_reference_small", epochs=DIST_EPOCHS,
+         reads=2 * SMALL_READS, wall_s=wall, steps=steps)
+    check_steps("one process, small files", steps,
+                DIST_EPOCHS * (2 * SMALL_READS // TRAIN_BATCH))
+    return {**ref, "out": out, "step_ms": None, "rrna": paths["small_rrna"],
+            "norrna": paths["small_norrna"], "reads": 2 * SMALL_READS}
 
 
 def check_dist_run(tag, out, ref, world, mesh, stdout):
@@ -1815,9 +1864,11 @@ def dist_run(tmp, ref, tag, world, tp, backend, device, smi):
                       "first_step_ms": 1e3 * r["step_s"][0],
                       "train_reads_per_s": batch // mesh["dp"] / step_s,
                       "launches": r["launches"], "train_steps": r["steps"]})
-        # graphed at tp = 1 (the dp average after the replay), eager at tp > 1
+        # graphed over NCCL (the whole step) and at tp = 1 over gloo (the
+        # dp average and the update after the replay), eager at tp > 1 over gloo
         check_steps(f"{tag} rank {r['rank']}", r["steps"],
-                    DIST_EPOCHS * (2 * TRAIN_READS // batch), graphed=mesh["tp"] == 1)
+                    DIST_EPOCHS * (ref["reads"] // batch),
+                    graphed=backend == "nccl" or mesh["tp"] == 1)
         check(r["launches"] == {**dict.fromkeys(r["launches"], 0), "exact": want_exact},
               f"{tag} rank {r['rank']}: the eval steps launched {r['launches']}, "
               f"not exact {want_exact} times alone")
@@ -1831,11 +1882,113 @@ def dist_run(tmp, ref, tag, world, tp, backend, device, smi):
     return out
 
 
+SIDE_STEPS = 10  # batches of the side-by-side check over NCCL; the first 2 untimed
+# one rank of the side-by-side check over NCCL (one rank a card): the eager
+# rank step and the captured one, each from this rank's shard of the
+# shipped weights over the same SIDE_STEPS batches (this rank's dp rows of
+# synthetic_dataset reads), each step timed, then one more step of each
+# under torch.profiler; its last stdout line is a JSON object
+SIDE_CHILD = """
+import json, sys, time
+from datetime import timedelta
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
+from ribodetector_tpu_torch.models.bilstm import BiLSTM, load_params
+from ribodetector_tpu_torch.parallel.mesh import batch_sharded, make_grid
+from ribodetector_tpu_torch.train import trainer
+a, rank = json.loads(sys.argv[2]), int(sys.argv[3])
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method=a["init_method"], world_size=a["world"],
+                        rank=rank, timeout=timedelta(seconds=300))
+grid = make_grid(a["tp"])
+n, B = a["steps"] + 1, a["batch"]
+tok, lengths, labels = (torch.from_numpy(x).cuda() for x in trainer.synthetic_dataset(
+    np.random.default_rng(a["seed"]), n * B, max_len=100))
+labels = labels.long()
+rows = [batch_sharded(grid.mesh, "dp")(torch.arange(i * B, (i + 1) * B, device="cuda"),
+                                       grid.dp_index) for i in range(n)]
+cfg = trainer.TrainConfig(learning_rate=a["lr"])
+report, state = {"rank": rank, "at": [grid.dp_index, grid.tp_index]}, {}
+for kind, graph in (("eager", False), ("graphed", None)):
+    model = BiLSTM(trainer.shard_params(load_params(a["npz"], "cuda"), grid))
+    opt = trainer.make_optimizer(cfg, model.parameters())
+    step = trainer.make_train_step(cfg, opt, grid, graph=graph)
+    trainer.reset_step_counts()
+    losses, times = [], []
+    for i in range(a["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(model.params(), tok, lengths, labels, rows[i]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    state[kind] = [torch.stack(losses).cpu()] + [
+        p.detach().cpu() for p in (*model.params(), opt.mu, opt.nu)]
+    steps = {**trainer.step_counts(), "updates": opt.steps()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(model.params(), tok, lengths, labels, rows[-1])
+        torch.cuda.synchronize()
+    step.release()
+    host = [e.name for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA]
+    report[kind] = {
+        "step_ms": 1e3 * float(np.median(times[2:])), "first_step_ms": 1e3 * times[0],
+        "steps": steps,
+        "host_kernel_launches": sum(x.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                                    for x in host),
+        "host_graph_launches": host.count("cudaGraphLaunch")}
+report["bit_for_bit"] = all(torch.equal(x, y) for x, y in zip(state["eager"], state["graphed"]))
+report["losses_max_rel_gap"] = float(((state["graphed"][0] - state["eager"][0]).abs()
+                                      / state["eager"][0].abs()).max())
+report["params_max_abs_gap"] = max(float((x - y).abs().max())
+                                   for x, y in zip(state["eager"][1:], state["graphed"][1:]))
+print(json.dumps(report), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def dist_side_by_side(smi, world, tp):
+    """SIDE_CHILD on every card over NCCL at tp: the captured rank step
+    (the dp average and tp's collectives inside the graph) against the
+    eager one, bit for bit on every rank (losses, params, Adam's state),
+    one capture, a replay and an update a step, and a captured step going
+    out as one graph launch with no kernel launch."""
+    from ribodetector_tpu_torch.parallel.mesh import make_dp_tp_mesh
+
+    mesh = make_dp_tp_mesh(tp=tp, devices=range(world)).shape
+    spec = {"world": world, "tp": tp, "steps": SIDE_STEPS, "batch": TRAIN_BATCH,
+            "lr": TRAIN_LR, "npz": NPZ, "seed": 29,
+            "init_method": f"tcp://127.0.0.1:{free_port()}"}
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(world):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SIDE_CHILD, REPO, json.dumps(spec), str(rank)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        CHILDREN.append(procs[-1])
+    reports = [finish(p, f"train_dist side by side rank {r}", timeout=600)[0]
+               for r, p in enumerate(procs)]
+    emit("train_dist", run=f"nccl_side_by_side_tp{tp}", world=world, mesh=mesh, card=smi,
+         batch=TRAIN_BATCH, steps=SIDE_STEPS, wall_s=time.perf_counter() - t0, ranks=reports)
+    for r in reports:
+        tag = f"side by side at tp = {tp}, rank {r['rank']}"
+        check(r["bit_for_bit"], f"{tag}: the captured and the eager rank step differ: {r}")
+        check(r["graphed"]["steps"] == {"captures": 1, "replays": SIDE_STEPS, "eager": 0,
+                                        "released": 0, "updates": SIDE_STEPS}
+              and r["eager"]["steps"]["eager"] == r["eager"]["steps"]["updates"] == SIDE_STEPS,
+              f"{tag}: the steps ran as {r}")
+        check(r["graphed"]["host_graph_launches"] == 1
+              and r["graphed"]["host_kernel_launches"] == 0,
+              f"{tag}: a captured step did not go out as one graph launch alone: {r}")
+
+
 def phase_train_dist(tmp, ref, smi):
     """Training over several devices. With two cards or more: the worker
-    over every card in an NCCL group at --tp 1 and --tp 2, then the training
-    CLI itself (main, which spawns the workers) at --tp 2. With one card:
-    the worker as two ranks on that card over gloo, at dp = 2 and tp = 2."""
+    over every card in an NCCL group at --tp 1 and --tp 2, the captured
+    rank step against the eager one at --tp 2, then the training CLI itself
+    (main, which spawns the workers) at --tp 2. With one card: the worker
+    as two ranks on that card over gloo, at dp = 2 and tp = 2."""
     import torch
 
     from ribodetector_tpu_torch.models.bilstm import load_params
@@ -1844,6 +1997,7 @@ def phase_train_dist(tmp, ref, smi):
     if n >= 2:
         dist_run(tmp, ref, f"nccl_dp{n}", n, 1, "nccl", "cuda", smi)
         want = dist_run(tmp, ref, "nccl_tp2", n, 2, "nccl", "cuda", smi)
+        dist_side_by_side(smi, n, 2)
         out = os.path.join(tmp, "dist_cli", "ck")
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "ribodetector_tpu_torch.train",
@@ -1861,7 +2015,9 @@ def phase_train_dist(tmp, ref, smi):
         check(gap <= TRAIN_LR, f"the CLI's best.npz differs from the worker run's by {gap}")
     else:
         dist_run(tmp, ref, "gloo_dp2_one_card", 2, 1, "gloo", "cuda:0", smi)
-        dist_run(tmp, ref, "gloo_tp2_one_card", 2, 2, "gloo", "cuda:0", smi)
+        # the eager tp step over gloo takes ~740 ms: 20 of them, not 81
+        dist_run(tmp, small_reference(tmp, ref), "gloo_tp2_one_card", 2, 2, "gloo",
+                 "cuda:0", smi)
 
 
 def routed_at_full_length(seqs_per_side):

@@ -25,20 +25,24 @@ collectives are explicit:
   buffer) and barrier only: gloo has no all_gather of CUDA tensors, and
   two ranks that share one card need gloo.
 
-The JAX trainer jits its step, so forward, backward and the update go out
-as one program a step. Here, on the card at tp = 1, the forward and the
-backward of each input shape are captured once as a CUDA graph over
-static input buffers and replayed every step (make_train_step): about
-8,800 small kernels a step at T = 100 go out as one graph launch. The
-update stays eager after the replay. On the CPU, and at tp > 1 (whose
-gloo collectives inside the recurrence cannot be captured), the step runs
-eagerly.
+The JAX trainer jits its step, so forward, backward, the collectives and
+the update go out as one program a step. Here, on the card, each input
+shape's step is captured once as a CUDA graph over static input buffers
+and replayed every step (make_train_step): forward and backward, the dp
+average of the gradients and the Adam update (train/optim.py, optax's
+arithmetic on device state), with tp's collectives inside the recurrence
+when the group is NCCL. About 8,800 small kernels a step at T = 100 go
+out as one graph launch. gloo's collectives cannot be captured: over gloo
+on the card (ranks that share one card) the dp average and the update run
+eagerly after the replay, and tp > 1 runs the eager step. The CPU runs the
+eager step.
 
 Differences from the JAX trainer, by design:
 
 - an explicit ``device`` and ``grid`` take the place of the mesh;
-- the optimizer holds its own state and updates the parameters in place,
-  so a train step takes the parameters and a batch and returns the loss;
+- the optimizer (optim.Adam) holds its own state and updates the
+  parameters in place, so a train step takes the parameters and a batch
+  and returns the loss;
 - matmuls run in fp32 (torch's default matmul precision, no TF32), where
   the JAX trainer asks for ``Precision.DEFAULT``, one bf16 pass on a TPU.
 
@@ -68,6 +72,7 @@ from ribodetector_tpu_torch.models.bilstm import (
 from ribodetector_tpu_torch.parallel.mesh import RowSplit, batch_sharded
 from ribodetector_tpu_torch.train.loss import cross_entropy_loss
 from ribodetector_tpu_torch.train.metrics import confusion_counts
+from ribodetector_tpu_torch.train.optim import Adam, leaf_views
 
 
 @dataclass
@@ -79,14 +84,9 @@ class TrainConfig:
 
 
 def make_optimizer(cfg: TrainConfig, params):
-    """Adam over `params` (an iterable of leaf tensors), or AdamW with
-    cfg.weight_decay when the decay is non-zero (optax.adam / optax.adamw;
-    torch's AdamW default decay of 1e-2 is never used)."""
-    params = list(params)
-    if cfg.weight_decay:
-        return torch.optim.AdamW(params, lr=cfg.learning_rate,
-                                 weight_decay=cfg.weight_decay)
-    return torch.optim.Adam(params, lr=cfg.learning_rate)
+    """optim.Adam over `params` (an iterable of leaf tensors): optax.adam, or
+    optax.adamw with cfg.weight_decay when the decay is non-zero."""
+    return Adam(params, cfg.learning_rate, cfg.weight_decay)
 
 
 GATE_LEAVES = ("w_ih_f", "w_hh_f", "b_f", "w_ih_b", "w_hh_b", "b_b")
@@ -204,6 +204,7 @@ def _loss_fn(params, tokens, lengths, labels, semantics, compute_dtype, grid=Non
 # launches: "captures" (a graph-ready step built for a new input shape),
 # "replays" (one a graph-ready step), "eager" (one an eager step) and
 # "released" (graph-ready steps freed; fit frees its own when it returns).
+# The updates are the optimizer's own count (optim.Adam.steps).
 STEP_COUNTS = collections.Counter()
 
 
@@ -222,14 +223,11 @@ def _average_over_dp(flat, grid):
     flat /= grid.dp
 
 
-def _views(flat, leaves):
-    """Each leaf's slice of the flat buffer, in the leaf's shape."""
-    return [v.view_as(p) for p, v in zip(leaves, flat.split([p.numel() for p in leaves]))]
-
-
 # device index -> the side stream every capture on that card warms up and
 # captures on: cuBLAS keeps a workspace for each stream it has run on, for
-# the life of the process, so one stream a card keeps that to one
+# the life of the process, so one stream a card keeps that to one. The
+# collectives captured there are enqueued on it too: NCCL's stream waits
+# on it and joins the capture.
 _CAPTURE_STREAMS = {}
 
 
@@ -240,82 +238,123 @@ def _capture_stream(index):
 
 
 class _StaticStep:
-    """The graph-ready forward and backward at one input shape.
+    """The graph-ready step at one input shape.
 
-    It owns static input buffers (the first batch, into which every later
-    batch is copied), one flat gradient buffer whose per-leaf views become
-    the leaves' .grad, and a static loss. `replay` runs the forward and
-    backward over the buffers and writes the gradients and the loss into
-    theirs: on the card a CUDA graph captured once (after one warm-up run
-    on the capture stream, which initializes what runs lazily on a first
-    call: cuBLAS's handle and workspace there, the allocator's blocks); on
-    the CPU, which has no graphs, the body itself. Neither updates the
-    parameters: the warm-up and the capture add no update.
+    It owns static input buffers, one flat gradient buffer whose per-leaf
+    views become the leaves' .grad, and a static loss. Without rows the
+    input buffers hold the first batch, and every later batch is copied
+    into them. With rows (an index tensor into the whole sets `batch`, which
+    must keep their storage while the step lives: fit's device-resident
+    set), a static index buffer takes each step's rows, and the body
+    gathers the batch into the input buffers itself. `replay` runs the
+    body: forward and backward over the buffers, the gradients and the
+    loss written into theirs, then `finish(flat, update)` when given one
+    (the dp average and the optimizer's update). On the card `replay` is a
+    CUDA graph captured once; on the CPU, which has no graphs, the body
+    itself.
+
+    Before the capture the body runs once as a warm-up with update=False,
+    on the card on the capture stream: it initializes what runs lazily on
+    a first call (cuBLAS's handle and workspace there, the allocator's
+    blocks, NCCL's communicators, which cannot be created under capture)
+    and adds no update. The capture runs nothing. So the first replay makes
+    the first update: a step's updates equal its replays. The CPU runs the
+    same warm-up.
     """
 
-    def __init__(self, params, batch, loss_fn):
-        self.params, self.inputs, self.loss_fn = params, batch, loss_fn
+    def __init__(self, params, batch, rows, loss_fn, finish=None):
+        self.params, self.loss_fn, self.finish = params, loss_fn, finish
+        if rows is None:
+            self.sources, self.rows = None, None
+            self.inputs = tuple(None if x is None else x.clone() for x in batch)
+        else:
+            self.sources, self.rows = batch, rows.clone()
+            self.inputs = tuple(None if x is None else x[rows] for x in batch)
         dev = self.params[0].device
         self.flat = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype,
                                 device=dev)
-        self.grads = _views(self.flat, self.params)
+        self.grads = leaf_views(self.flat, self.params)
         self.loss = torch.zeros((), dtype=torch.float32, device=dev)
         self.graph = None
-        self.replay = self.body
         if dev.type == "cuda":
             with torch.cuda.device(dev):
                 self.replay = self._capture()
+        else:
+            self.body(update=False)
+            self.replay = self.body
         STEP_COUNTS["captures"] += 1
 
-    def body(self):
+    def body(self, update=True):
+        if self.rows is not None:
+            for buf, x in zip(self.inputs, self.sources):
+                if x is not None:
+                    torch.index_select(x, 0, self.rows, out=buf)
         loss, _ = self.loss_fn(self.params, *self.inputs)
         grads = torch.autograd.grad(loss, self.params)
         torch.cat([g.reshape(-1) for g in grads], out=self.flat)
         self.loss.copy_(loss.detach())
+        if self.finish is not None:
+            self.finish(self.flat, update)
 
     def _capture(self):
         stream = _capture_stream(torch.cuda.current_device())
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            self.body()
+            self.body(update=False)
         torch.cuda.current_stream().wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
+        # "thread_local": NCCL's watchdog thread goes on querying the events
+        # of earlier collectives during a capture, which "global" forbids
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
             self.body()
         return self.graph.replay
 
     def load(self, batch, rows):
-        """Copy the next batch into the input buffers (rows: of batch)."""
+        """Take the next batch: its rows into the index buffer, or the batch
+        itself into the input buffers (copies, no kernel launch)."""
+        if rows is not None:
+            self.rows.copy_(rows)
+            return
         for buf, x in zip(self.inputs, batch):
-            if x is None:
-                continue
-            if rows is None:
+            if x is not None:
                 buf.copy_(x)
-            else:
-                torch.index_select(x, 0, rows, out=buf)
 
     def release(self):
         if self.graph is not None:
             self.graph.reset()
+        self.sources = None
         for p in self.params:
             p.grad = None
 
 
-def step_kind(device, grid=None, graph=None):
-    """How make_train_step's step runs on `device`: "graph" or "eager".
-    graph=None: the graph-ready step on the card at tp = 1, the eager step
-    elsewhere (the CPU; tp > 1, whose collectives run inside the
-    recurrence over gloo, which a graph cannot capture); False: eager;
-    True: the graph-ready step on any device (on the CPU its body runs in
-    place of a replay), which tp > 1 refuses."""
-    tp = grid is not None and grid.tp > 1
-    if graph and tp:
-        raise ValueError("the train step at tp > 1 runs eagerly: its gloo "
-                         "collectives run inside the recurrence, which a CUDA "
-                         "graph cannot capture")
-    if graph is None:
-        return "graph" if torch.device(device).type == "cuda" and not tp else "eager"
-    return "graph" if graph else "eager"
+def step_kind(device, grid=None, graph=None, backend=None):
+    """How make_train_step's step runs on `device`, in a process group of
+    `backend` ("nccl" or "gloo"; unused without a grid):
+
+    - "graph": the whole step graph-ready, one replay a step: forward,
+      backward, the dp average and the update, with tp's collectives
+      inside the recurrence. On the card without a grid or over NCCL (or
+      on a grid of one rank); on the CPU when asked for (graph=True), where
+      its body runs in place of a replay.
+    - "graph_grads": forward and backward replayed, then the dp average
+      and the update eagerly: on the card at dp > 1 and tp = 1 over gloo,
+      whose collectives a CUDA graph cannot capture.
+    - "eager": graph=False, the CPU by default, and tp > 1 over gloo on
+      the card, where graph=True raises.
+    """
+    if graph is False:
+        return "eager"
+    if torch.device(device).type != "cuda":
+        return "graph" if graph else "eager"
+    if grid is None or backend == "nccl" or grid.dp * grid.tp == 1:
+        return "graph"
+    if grid.tp > 1:
+        if graph:
+            raise ValueError("the train step at tp > 1 over gloo runs eagerly: its "
+                             "collectives run inside the recurrence, and a CUDA graph "
+                             "cannot capture gloo's")
+        return "eager"
+    return "graph_grads"
 
 
 class TrainStep:
@@ -327,53 +366,59 @@ class TrainStep:
         self.cfg, self.optimizer, self.grid, self.want_graph = cfg, optimizer, grid, graph
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.dp = grid.dp if grid is not None else 1
-        step_kind("cpu", grid, graph)  # tp > 1 refuses graph=True up front
+        self.backend = None if grid is None else dist.get_backend(grid.dp_group)
         self.static = {}
 
     def _loss(self, params, tokens, lengths, labels):
         return _loss_fn(params, tokens, lengths, labels, self.cfg.semantics,
                         self.compute_dtype, self.grid)
 
+    def _finish(self, flat, update=True):
+        """The flat gradient averaged over dp, then the optimizer's update."""
+        if self.dp > 1:
+            _average_over_dp(flat, self.grid)
+        if update:
+            self.optimizer.update(flat)
+
     def __call__(self, params, tokens, lengths, labels, rows=None):
+        if len(params) != len(self.optimizer.params) or any(
+                p is not q for p, q in zip(params, self.optimizer.params)):
+            raise ValueError("the train step's params must be the optimizer's, in its order")
         batch = (tokens, lengths, labels)
-        if step_kind(params[0].device, self.grid, self.want_graph) == "eager":
+        kind = step_kind(params[0].device, self.grid, self.want_graph, self.backend)
+        if kind == "eager":
             if rows is not None:
                 batch = tuple(None if x is None else x[rows] for x in batch)
             return self._eager(params, *batch)
         n = len(tokens) if rows is None else len(rows)
+        # with rows the graph gathers from the whole sets: they are its own
         key = (tuple(map(id, params)), n,
-               *((None,) if x is None else (tuple(x.shape[1:]), x.dtype) for x in batch))
+               *((None,) if x is None else (tuple(x.shape[1:]), x.dtype) for x in batch),
+               None if rows is None else tuple(map(id, batch)))
         static = self.static.get(key)
         if static is None:
-            first = tuple(None if x is None else x.clone() if rows is None else x[rows]
-                          for x in batch)
-            static = self.static[key] = _StaticStep(params, first, self._loss)
+            static = self.static[key] = _StaticStep(
+                params, batch, rows, self._loss, self._finish if kind == "graph" else None)
         else:
             static.load(batch, rows)
         static.replay()
         STEP_COUNTS["replays"] += 1
-        # the leaves' .grad are the buffer the replay writes, bound again
-        # each step: another shape's step, or zero_grad, may have rebound them
+        if kind == "graph_grads":
+            self._finish(static.flat)
+        # the leaves' .grad are the (averaged) gradients the update read,
+        # bound again each step: another shape's step may have rebound them
         for p, g in zip(params, static.grads):
             p.grad = g
-        if self.dp > 1:
-            _average_over_dp(static.flat, self.grid)
-        self.optimizer.step()
         # a copy: the static loss is overwritten by the next replay
         return static.loss.clone()
 
     def _eager(self, params, tokens, lengths, labels):
         STEP_COUNTS["eager"] += 1
-        self.optimizer.zero_grad(set_to_none=True)
         loss, _ = self._loss(params, tokens, lengths, labels)
-        loss.backward()
-        if self.dp > 1:
-            flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
-                              for p in params])
-            _average_over_dp(flat, self.grid)
-            for p, g in zip(params, _views(flat, params)):
-                p.grad = g
-        self.optimizer.step()
+        flat = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, params)])
+        self._finish(flat)
+        for p, g in zip(params, leaf_views(flat, params)):
+            p.grad = g
         return loss.detach()
 
     def release(self):
@@ -387,23 +432,25 @@ def make_train_step(cfg: TrainConfig, optimizer, grid=None, *, graph=None):
     """step(params, tokens, lengths, labels, rows=None) -> loss (a detached
     scalar on the params' device, a tensor of its own each step): one
     forward and backward of the plain recurrence in cfg.compute_dtype, then
-    one optimizer step, which updates the leaf tensors of `params` (the
-    ones `optimizer` holds) in place. With rows (an index tensor), the
-    batch is those rows of tokens, lengths and labels (fit's
-    device-resident set), gathered straight into the step's input buffers.
+    one update of `optimizer` (make_optimizer's optim.Adam), which updates
+    the leaf tensors of `params` (the ones it holds, in its order) in
+    place; after the step each leaf's .grad is the gradient the update
+    read. With rows (an index tensor), the batch is those rows of tokens,
+    lengths and labels (fit's device-resident set), gathered by the step
+    itself into its input buffers (on the card inside the graph).
 
-    On the card at tp = 1 the step is graph-ready (step_kind): for each
-    (params, batch, T, input dtypes) it first sees, it captures the forward
-    and the backward once as a CUDA graph over static input buffers (one
-    warm-up run first, which adds no update); every step copies its batch
-    into the buffers, replays the graph and runs the optimizer's update
-    eagerly after it (the same non-capturable torch.optim update as the
-    eager step, so the two steps give the same numbers). A failed capture
-    raises. On the CPU, and at tp > 1, the step runs eagerly. graph (an
-    internal argument): False runs the eager step anywhere (chip_smoke.py's
-    side-by-side check); True runs the graph-ready step on any device (on
-    the CPU its body stands in for the replay: the tests' view of the
-    card's step).
+    On the card the step is graph-ready (step_kind): for each (params,
+    batch, T, input dtypes) it first sees, it captures the whole step once
+    as a CUDA graph over static input buffers (one warm-up run first, which
+    adds no update), and every step copies its batch into the buffers and
+    replays the graph: one graph launch a step. Over gloo the dp average
+    and the update run eagerly after the replay, and tp > 1 runs the eager
+    step. A failed capture raises. The eager step runs the same update, so
+    the two give the same numbers. On the CPU the step runs eagerly. graph
+    (an internal argument): False runs the eager step anywhere
+    (chip_smoke.py's side-by-side check); True runs the graph-ready step on
+    any device (on the CPU its body stands in for the replay: the tests'
+    view of the card's step).
 
     With a grid, `params` is this rank's shard_params and the batch its dp
     rows: the forward runs tp_logits when tp > 1, the gradients are
@@ -537,8 +584,8 @@ def fit(
     the rows, in whole batches (the last fractional batch is dropped),
     each gathered on the device from the set put there once. On the card
     the step is graph-ready (make_train_step): one capture per input
-    shape, a replay and an eager update per batch; its graphs are freed
-    when fit returns.
+    shape and one replay per batch, the update inside it; its graphs are
+    freed when fit returns.
 
     grid: this process's parallel.mesh.Grid (make_grid) in a group of one
     process per device, every rank calling fit with the same arguments.

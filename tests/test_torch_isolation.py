@@ -38,6 +38,7 @@ def test_importing_every_module_loads_no_jax():
     assert "ribodetector_tpu_torch.ops.lstm_cuda" in mods
     assert "ribodetector_tpu_torch.parallel.mesh" in mods
     assert "ribodetector_tpu_torch.train.__main__" in mods
+    assert "ribodetector_tpu_torch.train.optim" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -43,7 +43,8 @@ def parse(name, data, *args, **kw):
     return got
 
 
-def test_tokens_lengths_match_python(rng):
+def test_tokens_lengths_match_python():
+    rng = np.random.default_rng(46)
     bases = np.array(list("ACGTUNacgt"))
     seqs = ["".join(rng.choice(bases, size=rng.integers(5, 160))) for _ in range(200)]
     data = make_fastq(seqs)
@@ -106,7 +107,8 @@ def test_gather_with_scratch_reuse():
     assert out2 == data[offsets[1, 0] : offsets[1, 1]]
 
 
-def test_b5_packed_parse_matches_unpacked(rng):
+def test_b5_packed_parse_matches_unpacked():
+    rng = np.random.default_rng(109)
     bases = np.array(list("ACGTUNacgt"))
     seqs = ["".join(rng.choice(bases, size=rng.integers(5, 160))) for _ in range(150)]
     data = make_fastq(seqs)
@@ -125,11 +127,12 @@ def test_b5_packed_parse_matches_unpacked(rng):
         np.testing.assert_array_equal(native.pack_b5(tokens), packed)
 
 
-def test_b5b2_parse_flags_and_packs_the_2bit_lane(rng):
+def test_b5b2_parse_flags_and_packs_the_2bit_lane():
     """Twin of test_b2_lane.py's parse check: clean full-length ACGT(U)
     calls are b2ok with pack_b2 rows; N, short or lowercase reads are not;
     the b5 half equals parse_fastq_chunk_b5's, in a stream cut mid-record
     too."""
+    rng = np.random.default_rng(128)
     lut = {"A": 0, "C": 1, "G": 2, "T": 3, "U": 3}
     recs, want_ok, want_rows = [], [], []
     for i in range(64):

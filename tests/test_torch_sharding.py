@@ -365,7 +365,7 @@ def test_batch_sharded_rows_are_jax_shards():
         split(x[:30], 0)
 
 
-def test_sharded_classifier_matches_single_device(ref_params_path, rng):
+def test_sharded_classifier_matches_single_device(ref_params_path):
     from ribodetector_tpu.models import load_params as jax_load
     from ribodetector_tpu.parallel import make_data_mesh as jax_data_mesh
     from ribodetector_tpu.parallel.sharded import make_sharded_classifier as jax_sharded
@@ -373,7 +373,7 @@ def test_sharded_classifier_matches_single_device(ref_params_path, rng):
     from ribodetector_tpu_torch.parallel import make_data_mesh, make_sharded_classifier
     from tests.conftest import random_reads
 
-    seqs = random_reads(rng, 64, lmin=20, lmax=50)
+    seqs = random_reads(np.random.default_rng(368), 64, lmin=20, lmax=50)
     tokens, lengths = encode_batch(seqs, 50)
     params = port_load(ref_params_path)
     tok, ln = torch.from_numpy(tokens), torch.from_numpy(lengths)

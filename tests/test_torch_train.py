@@ -10,7 +10,8 @@ Tolerances, from the measured gaps:
   and the same float32 operations), accuracy to one float32 ulp;
 - gradients at T=100, 64 reads: max-abs <= 1e-5 * max(1, max|g_jax|) per
   leaf (the worst measured is 4.5e-6 relative);
-- 3 optimizer steps on the same gradients: max-abs <= 2e-6;
+- 3 optimizer steps on the same gradients: max-abs <= 2e-6 (read: 0; after
+  50 steps the params, moments and count are optax's bit for bit);
 - fit: per-epoch train loss to 1e-4 relative; parameters to max-abs <= lr,
   because Adam's first steps move each weight by about lr * sign(g), and a
   gradient near zero whose sign differs by rounding moves it one lr step.
@@ -39,6 +40,7 @@ from ribodetector_tpu_torch.train import metrics as tmetrics
 from ribodetector_tpu_torch.train import trainer as tt
 from ribodetector_tpu_torch.train.__main__ import main as train_main
 from ribodetector_tpu_torch.train.__main__ import main_cpu as train_main_cpu
+from ribodetector_tpu_torch.train.optim import Adam, leaf_views
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -168,9 +170,10 @@ def test_gradients_match_jax(ref_params_path, batch100, semantics):
 # ---------------------------------------------------------------- optimizer
 
 
-def _optimizer_gap(weight_decay, make_optimizer, steps=3, lr=1e-3):
-    """max-abs between optax and make_optimizer after `steps` updates fed
-    the same gradients, from standard-normal parameters."""
+def _optax_and_port(weight_decay, make_optimizer, steps, lr):
+    """optax and make_optimizer's update after `steps` updates fed the same
+    gradients, from standard-normal parameters -> (optax's params and
+    state, the port's params and optimizer)."""
     rng = np.random.default_rng(11)
     shapes = [(4, 64), (16, 64), (64,), (32, 2), (2,)]
     start = [rng.standard_normal(s).astype(np.float32) for s in shapes]
@@ -186,9 +189,13 @@ def _optimizer_gap(weight_decay, make_optimizer, steps=3, lr=1e-3):
     tp = [torch.from_numpy(p.copy()).requires_grad_(True) for p in start]
     topt = make_optimizer(tt.TrainConfig(learning_rate=lr, weight_decay=weight_decay), tp)
     for g in grads:
-        for p, x in zip(tp, g):
-            p.grad = torch.from_numpy(x)
-        topt.step()
+        topt.update(torch.cat([torch.from_numpy(x).reshape(-1) for x in g]))
+    return (jp, state), (tp, topt)
+
+
+def _optimizer_gap(weight_decay, make_optimizer, steps=3, lr=1e-3):
+    """max-abs between optax and make_optimizer after `steps` updates."""
+    (jp, _), (tp, _) = _optax_and_port(weight_decay, make_optimizer, steps, lr)
     return max(float(np.abs(np.asarray(j) - t.detach().numpy()).max())
                for j, t in zip(jp, tp))
 
@@ -198,12 +205,28 @@ def test_optimizer_matches_optax(weight_decay):
     assert _optimizer_gap(weight_decay, tt.make_optimizer) <= 2e-6
 
 
+@pytest.mark.parametrize("weight_decay,lr", [(0.0, 1e-3), (0.0, 5e-3), (1e-2, 1e-3),
+                                             (1e-2, 5e-3)])
+def test_optimizer_is_optax_bit_for_bit(weight_decay, lr):
+    """The port's update (optim.Adam, the one the card captures) runs
+    optax's ops in optax's order, on device state: after 50 updates the
+    params, both moments and the step count are optax's bit for bit."""
+    (jp, state), (tp, topt) = _optax_and_port(weight_decay, tt.make_optimizer, 50, lr)
+    adam = state[0]  # ScaleByAdamState, first in adamw's chain too
+    assert topt.steps() == int(adam.count) == 50
+    for j, t, mu, nu, tmu, tnu in zip(jp, tp, adam.mu, adam.nu, leaf_views(topt.mu, tp),
+                                      leaf_views(topt.nu, tp)):
+        np.testing.assert_array_equal(t.detach().numpy(), np.asarray(j))
+        np.testing.assert_array_equal(tmu.numpy(), np.asarray(mu))
+        np.testing.assert_array_equal(tnu.numpy(), np.asarray(nu))
+
+
 def test_optimizer_check_catches_torch_default_decay():
     """A planted fault: AdamW with torch's default decay (1e-2) where the
     config asks for none must fail the comparison above."""
 
     def faulty(cfg, params):
-        return torch.optim.AdamW(list(params), lr=cfg.learning_rate)
+        return Adam(params, cfg.learning_rate, weight_decay=1e-2)
 
     assert _optimizer_gap(0.0, faulty) > 2e-6
 
@@ -285,8 +308,8 @@ def test_checkpoint_metrics_recorded():
     assert meta["epoch"] == 47
 
 
-def test_fit_checkpoints_and_best(tmp_path, rng):
-    data = tt.synthetic_dataset(rng, 192, max_len=40)
+def test_fit_checkpoints_and_best(tmp_path):
+    data = tt.synthetic_dataset(np.random.default_rng(288), 192, max_len=40)
     params = tb.init_params(torch.Generator().manual_seed(0))
     ckdir = tmp_path / "ck"
     tt.fit(params, data, tt.TrainConfig(learning_rate=1e-2), epochs=2,

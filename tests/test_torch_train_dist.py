@@ -60,6 +60,7 @@ import torch.distributed as dist
 from ribodetector_tpu_torch.models import bilstm as tb
 from ribodetector_tpu_torch.parallel.mesh import batch_sharded, make_grid
 from ribodetector_tpu_torch.train import trainer as tt
+from ribodetector_tpu_torch.train.optim import leaf_views
 
 spec, rank = json.loads(sys.argv[1]), int(sys.argv[2])
 dist.init_process_group("gloo", init_method=spec["init_method"], world_size=spec["world"],
@@ -84,9 +85,11 @@ if spec.get("init64"):  # one more step, at hidden 64: the Adam state's shapes
     model64 = tb.BiLSTM(tt.shard_params(tb.load_params(spec["init64"]), grid))
     opt64 = tt.make_optimizer(cfg, model64.parameters())
     tt.make_train_step(cfg, opt64, grid)(model64.params(), tok, ln, lab.long())
-    shapes = {k: [list(p.shape), list(opt64.state[p]["exp_avg"].shape),
-                  list(opt64.state[p]["exp_avg_sq"].shape)]
-              for k, p in zip(tb.BiLSTMParams._fields, model64.params())}
+    leaves64 = model64.params()
+    shapes = {k: [list(p.shape), list(mu.shape), list(nu.shape)]
+              for k, p, mu, nu in zip(tb.BiLSTMParams._fields, leaves64,
+                                      leaf_views(opt64.mu, leaves64),
+                                      leaf_views(opt64.nu, leaves64))}
 saves, logs = [], []
 save = tt.save_params
 tt.save_params = lambda path, *a: saves.append(path) or save(path, *a)
