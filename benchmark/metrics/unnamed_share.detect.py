@@ -1,0 +1,8 @@
+"""unnamed_share.detect: Main-thread StageTimer "detect" self time (the part of a detect call
+that no finer stage of the program names) over the window's wall, in %."""
+
+from harness.readers import main_share
+
+
+def read(rec):
+    return main_share(rec, "detect")

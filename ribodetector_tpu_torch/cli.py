@@ -129,14 +129,17 @@ def _run(argv, device):
 
 
 def _detect(args, device):
-    config_file = args.config if args.config is not None else DEFAULT_CONFIG
-    config = ConfigParser.from_json(config_file)
-    if args.kernel is not None:
-        config.config.setdefault("runtime", {})["kernel"] = args.kernel
+    from ribodetector_tpu_torch.runtime.profiling import span
 
-    from ribodetector_tpu_torch.runtime import Predictor
+    with span("cli_setup"):
+        config_file = args.config if args.config is not None else DEFAULT_CONFIG
+        config = ConfigParser.from_json(config_file)
+        if args.kernel is not None:
+            config.config.setdefault("runtime", {})["kernel"] = args.kernel
 
-    seq_pred = Predictor(config, args, device=device)
+        from ribodetector_tpu_torch.runtime import Predictor
+
+        seq_pred = Predictor(config, args, device=device)
     seq_pred.load_model()
     seq_pred.detect()
 

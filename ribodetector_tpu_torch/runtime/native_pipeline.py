@@ -1296,12 +1296,15 @@ class NativeRunner:
                     self._dispatch_bucket(pending, infers, stagers, partial, b, acc)
 
     def _flush_buckets(self, pending, infers, stagers, partial, acc):
-        for b in range(len(stagers)):
-            if partial[b] is not None and partial[b][3]:
-                self._dispatch_bucket(pending, infers, stagers, partial, b, acc)
-        acc.closed = True
-        if acc.inflight == 0 and acc.n:
-            self._write_chunk_bucketed(acc)
+        # stage "flush": the partial batches' dispatch and, where they are
+        # done, the accumulator's labels and writes
+        with self.p.timer.stage("flush"):
+            for b in range(len(stagers)):
+                if partial[b] is not None and partial[b][3]:
+                    self._dispatch_bucket(pending, infers, stagers, partial, b, acc)
+            acc.closed = True
+            if acc.inflight == 0 and acc.n:
+                self._write_chunk_bucketed(acc)
 
     def _write_chunk_bucketed(self, acc):
         counts, fhs = self._counts, acc.fhs
@@ -1384,6 +1387,7 @@ class NativeRunner:
         counts = {"norrna": 0, "rrna": 0, "unclf": 0}
         num_read = 0
         rpc = self._records_per_chunk()
+        timer = p.timer
         # everything that opens fds/threads happens INSIDE the try: a
         # failure in manifest restore or output opening must still release
         # the input streams
@@ -1391,66 +1395,67 @@ class NativeRunner:
         resume = parts = fhs = None
         streams, curs = [], []
         try:
-            streams = [
-                make_chunk_stream(
-                    f, p.len, rpc, depth=self.DEPTH, prefetch=self.PREFETCH,
+            with timer.stage("open"):
+                streams = [
+                    make_chunk_stream(
+                        f, p.len, rpc, depth=self.DEPTH, prefetch=self.PREFETCH,
+                        timer=p.timer,
+                    )
+                    for f in p.input
+                ]
+                want_resume = getattr(p.args, "resume", False)
+                resume = ResumeState(p) if want_resume and not distributed else None
+                self._resume = resume
+                parts = DistributedParts(p) if distributed else None
+                self._parts = parts
+                if resume:
+                    num_read, counts = resume.restore(p)
+                elif parts and want_resume:
+                    # coordinated group relaunch: seed from this host's
+                    # completion manifest; completed own chunks are skipped
+                    # parse-only below
+                    num_read, counts = parts.restore(p)
+                elif not parts:
+                    fhs = p._open_outputs(binary=True)
+                if self._pbar is not None and num_read:
+                    # the live bar resumes from the restored record count so
+                    # its total agrees with the final summary
+                    self._pbar.n = num_read
+                    self._pbar.refresh()
+                self._counts = counts
+                self._writer = _Writer(
+                    compress_threads=self._compress_threads(),
+                    gz_level=getattr(p, "gz_level", None),
                     timer=p.timer,
+                    on_level_drop=lambda lvl: p.logger.info(
+                        "write stage is the bottleneck: dropping gz output "
+                        "compression to libdeflate level %d for the rest of the "
+                        "run (~4%% larger files; pass --gz-level to pin a level "
+                        "instead)",
+                        lvl,
+                    ),
                 )
-                for f in p.input
-            ]
-            want_resume = getattr(p.args, "resume", False)
-            resume = ResumeState(p) if want_resume and not distributed else None
-            self._resume = resume
-            parts = DistributedParts(p) if distributed else None
-            self._parts = parts
-            if resume:
-                num_read, counts = resume.restore(p)
-            elif parts and want_resume:
-                # coordinated group relaunch: seed from this host's
-                # completion manifest; completed own chunks are skipped
-                # parse-only below
-                num_read, counts = parts.restore(p)
-            elif not parts:
-                fhs = p._open_outputs(binary=True)
-            if self._pbar is not None and num_read:
-                # the live bar resumes from the restored record count so
-                # its total agrees with the final summary
-                self._pbar.n = num_read
-                self._pbar.refresh()
-            self._counts = counts
-            self._writer = _Writer(
-                compress_threads=self._compress_threads(),
-                gz_level=getattr(p, "gz_level", None),
-                timer=p.timer,
-                on_level_drop=lambda lvl: p.logger.info(
-                    "write stage is the bottleneck: dropping gz output "
-                    "compression to libdeflate level %d for the rest of the "
-                    "run (~4%% larger files; pass --gz-level to pin a level "
-                    "instead)",
-                    lvl,
-                ),
-            )
-            timer = p.timer
-            curs = [
-                _RecordCursor(_Prefetcher(iter(s), depth=self.PREFETCH))
-                for s in streams
-            ]
-            # Every batch owns a pooled staging buffer (released only after
-            # its labels are fetched), so a pool of dispatcher threads can
-            # keep several copies and classify steps queued on the device.
-            # Labels scatter by index, so completion order is irrelevant.
-            from concurrent.futures import ThreadPoolExecutor
+                curs = [
+                    _RecordCursor(_Prefetcher(iter(s), depth=self.PREFETCH))
+                    for s in streams
+                ]
+                # Every batch owns a pooled staging buffer (released only after
+                # its labels are fetched), so a pool of dispatcher threads can
+                # keep several copies and classify steps queued on the device.
+                # Labels scatter by index, so completion order is irrelevant.
+                from concurrent.futures import ThreadPoolExecutor
 
-            workers = self._dispatchers_cfg
-            if workers is None:
-                workers = 2 if len(buckets) == 1 else 4
-            self._bucket_dispatcher = ThreadPoolExecutor(
-                max_workers=int(workers), thread_name_prefix="rd-dispatch"
-            )
-            from collections import Counter, deque
+                workers = self._dispatchers_cfg
+                if workers is None:
+                    workers = 2 if len(buckets) == 1 else 4
+                self._bucket_dispatcher = ThreadPoolExecutor(
+                    max_workers=int(workers), thread_name_prefix="rd-dispatch"
+                )
+                from collections import Counter, deque
 
-            self._pinned = (Counter(), Counter())
-            infers, stagers = self._bucket_infers(buckets)
+                self._pinned = (Counter(), Counter())
+            with timer.stage("steps"):
+                infers, stagers = self._bucket_infers(buckets)
             partial = [None] * len(stagers)
             pending = deque()
             ci = resume.chunks_done if resume else 0
@@ -1484,53 +1489,57 @@ class NativeRunner:
                     with timer.stage("parse"):
                         if not all(c.ready() for c in curs):
                             break
-                    cnt = min(rpc - done, *(c.chunk_avail() for c in curs))
-                    takes = [c.take(cnt) for c in curs]
-                    new_ids = [id(t[0]) for t in takes]
-                    if acc.segs and acc.would_overflow(new_ids):
-                        # per-acc window-span bound (see _ChunkAcc): split the
-                        # write accumulator mid-chunk
-                        acc.close_fhs = False
-                        self._flush_buckets(pending, infers, stagers, partial, acc)
-                        acc = _ChunkAcc(ci, chunk_fhs, rpc)
-                    # global budget: drain finished batches until the pinned
-                    # window count (all unwritten accs) fits the stream slot
-                    # pools -- older accs write FIFO and unpin as we drain
-                    while pending and self._pin_overflow(new_ids):
-                        self._finish_bucketed(*pending.popleft())
-                    self._pin_windows(acc, takes)
-                    row0 = acc.n
-                    d, bo, toks, toks_b2, lens, ok2, recs, start = takes[0]
-                    acc.segs.append((d, bo, recs, start, cnt, row0))
-                    b_idx = route_records(lens, toks, buckets, p.len)
-                    nb = np.int16(len(buckets))  # the 2-bit lane's index
-                    if paired:
-                        (d2, bo2, toksB, toksB_b2, lensB, ok2B, recs2,
-                         start2) = takes[1]
-                        acc.segs2.append((d2, bo2, recs2, start2, cnt, row0))
-                        b_idx = np.maximum(
-                            b_idx, route_records(lensB, toksB, buckets, p.len)
-                        )
-                        if self._b2_enabled:
-                            # a pair rides the 2-bit lane only when BOTH
-                            # ends are eligible (one device batch per pair)
-                            b_idx = np.where(
-                                (ok2 != 0) & (ok2B != 0), nb, b_idx
+                    # route: the take, the lane of each record and the
+                    # row copies into staging; the dispatches, waits and
+                    # writes they set off are its child stages
+                    with timer.stage("route"):
+                        cnt = min(rpc - done, *(c.chunk_avail() for c in curs))
+                        takes = [c.take(cnt) for c in curs]
+                        new_ids = [id(t[0]) for t in takes]
+                        if acc.segs and acc.would_overflow(new_ids):
+                            # per-acc window-span bound (see _ChunkAcc): split the
+                            # write accumulator mid-chunk
+                            acc.close_fhs = False
+                            self._flush_buckets(pending, infers, stagers, partial, acc)
+                            acc = _ChunkAcc(ci, chunk_fhs, rpc)
+                        # global budget: drain finished batches until the pinned
+                        # window count (all unwritten accs) fits the stream slot
+                        # pools -- older accs write FIFO and unpin as we drain
+                        while pending and self._pin_overflow(new_ids):
+                            self._finish_bucketed(*pending.popleft())
+                        self._pin_windows(acc, takes)
+                        row0 = acc.n
+                        d, bo, toks, toks_b2, lens, ok2, recs, start = takes[0]
+                        acc.segs.append((d, bo, recs, start, cnt, row0))
+                        b_idx = route_records(lens, toks, buckets, p.len)
+                        nb = np.int16(len(buckets))  # the 2-bit lane's index
+                        if paired:
+                            (d2, bo2, toksB, toksB_b2, lensB, ok2B, recs2,
+                             start2) = takes[1]
+                            acc.segs2.append((d2, bo2, recs2, start2, cnt, row0))
+                            b_idx = np.maximum(
+                                b_idx, route_records(lensB, toksB, buckets, p.len)
                             )
-                        self._route_into(
-                            pending, infers, stagers, partial, acc, b_idx,
-                            [(toks, toks_b2, lens), (toksB, toksB_b2, lensB)],
-                            row0=row0,
-                        )
-                    else:
-                        if self._b2_enabled:
-                            b_idx = np.where(ok2 != 0, nb, b_idx)
-                        self._route_into(
-                            pending, infers, stagers, partial, acc, b_idx,
-                            [(toks, toks_b2, lens)], row0=row0,
-                        )
-                    acc.n += cnt
-                    done += cnt
+                            if self._b2_enabled:
+                                # a pair rides the 2-bit lane only when BOTH
+                                # ends are eligible (one device batch per pair)
+                                b_idx = np.where(
+                                    (ok2 != 0) & (ok2B != 0), nb, b_idx
+                                )
+                            self._route_into(
+                                pending, infers, stagers, partial, acc, b_idx,
+                                [(toks, toks_b2, lens), (toksB, toksB_b2, lensB)],
+                                row0=row0,
+                            )
+                        else:
+                            if self._b2_enabled:
+                                b_idx = np.where(ok2 != 0, nb, b_idx)
+                            self._route_into(
+                                pending, infers, stagers, partial, acc, b_idx,
+                                [(toks, toks_b2, lens)], row0=row0,
+                            )
+                        acc.n += cnt
+                        done += cnt
                 num_read += done
                 # the manifest's record count, set before the flush:
                 # _flush_buckets may write and complete the chunk at once
@@ -1538,28 +1547,36 @@ class NativeRunner:
                 self._flush_buckets(pending, infers, stagers, partial, acc)
                 ci += 1
                 self._log_progress(num_read)
-            while pending:
-                self._finish_bucketed(*pending.popleft())
-            self._writer.close()
-            if self._pbar is not None:
-                self._pbar.close()
-                self._pbar = None
-            if resume:
-                resume.merge(p)
-            elif not parts:
-                p._close_outputs(fhs)
-            p._log_summary(num_read, counts)
+            with timer.stage("flush"):  # the batches still in flight
+                while pending:
+                    self._finish_bucketed(*pending.popleft())
+            with timer.stage("drain"):
+                # every queued deflate and write
+                self._writer.close()
+            with timer.stage("close"):
+                if self._pbar is not None:
+                    self._pbar.close()
+                    self._pbar = None
+                if resume:
+                    resume.merge(p)
+                elif not parts:
+                    p._close_outputs(fhs)
+                p._log_summary(num_read, counts)
             ok = True
         finally:
-            # producer threads + input fds are released on BOTH paths (a
-            # paired run truncated to the shorter file leaves the longer
-            # side's prefetcher alive); writer/handles only on failure
-            for c in curs:
-                c._pf.stop()
-            for s in streams:
-                s.close()
-            if not ok:
-                self._abort_cleanup(resume, parts, fhs)
+            # producer threads, input fds and the dispatcher pool are
+            # released on BOTH paths (a paired run truncated to the shorter
+            # file leaves the longer side's prefetcher alive);
+            # writer/handles only on failure
+            with timer.stage("close"):
+                for c in curs:
+                    c._pf.stop()
+                for s in streams:
+                    s.close()
+                if not ok:
+                    self._abort_cleanup(resume, parts, fhs)
+                if self._bucket_dispatcher is not None:
+                    self._bucket_dispatcher.shutdown(wait=False, cancel_futures=True)
 
     def _abort_cleanup(self, resume, parts, fhs):
         """Best-effort teardown after a FAILED run (the primary exception
@@ -1631,12 +1648,7 @@ class NativeRunner:
         ).get("buckets", "auto")
         # one engine for every mode: buckets off (or degenerate at this -l)
         # runs the same loop with a single full-size bucket
-        buckets = choose_buckets(p.len, spec) or [p.len]
-        try:
-            self.run_bucketed(buckets)
-        finally:
-            if self._bucket_dispatcher is not None:
-                self._bucket_dispatcher.shutdown(wait=False, cancel_futures=True)
+        self.run_bucketed(choose_buckets(p.len, spec) or [p.len])
 
 
 def resolved_kernel(p):

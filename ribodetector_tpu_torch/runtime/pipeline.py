@@ -172,11 +172,13 @@ class Predictor:
         )
 
         self.get_state_file()
-        self.devices = self._select_devices()
+        with self.timer.stage("load.devices"):
+            self.devices = self._select_devices()
         self.device = self.devices[0]
-        # the weights on every card (554 KB each): each card's classify
-        # steps read their own copy
-        self._card_params = [load_params(self.state_file, d) for d in self.devices]
+        with self.timer.stage("load.weights"):
+            # the weights on every card (554 KB each): each card's classify
+            # steps read their own copy
+            self._card_params = [load_params(self.state_file, d) for d in self.devices]
         self.params = self._card_params[0]
         runtime_cfg = self.config.get("runtime", {})
         self.semantics = getattr(self.args, "semantics", None) or runtime_cfg.get(
@@ -204,7 +206,8 @@ class Predictor:
             raise ValueError(f"unknown precision mode: {self.precision_mode}")
         if self.kernel == "cuda":  # refuse exact under bf16 before any work
             kernel_mode(self.precision_mode, getattr(torch, self.compute_dtype))
-        self._maybe_parity_probe()
+        with self.timer.stage("load.probe"):
+            self._maybe_parity_probe()
         n_dev = len(self.devices)
         self.logger.info(
             "Model using {} ({} device{}) for read length {}{}{}{} loaded{}".format(
@@ -219,7 +222,8 @@ class Predictor:
                 if self.device.type == "cuda" and self.kernel == "plain" else "",
             )
         )
-        self._infer = self._build_infers()
+        with self.timer.stage("load.steps"):
+            self._infer = self._build_infers()
 
     def _probe_marker(self):
         """Pass-marker path: the verdict is a property of (torch version,
@@ -448,6 +452,15 @@ class Predictor:
     # ------------------------------------------------------------- runs
 
     def detect(self):
+        """Classify the input files into the outputs (the CLI's run). The
+        stage "detect" holds the whole call; its self time is what no finer
+        stage names. --profile logs the timer's summary after it."""
+        with self.timer.stage("detect"):
+            self._detect()
+        if self.timer.enabled:
+            self.logger.info(self.timer.summary())
+
+    def _detect(self):
         self.input = self.args.input
         self.output = self.args.output
         self.rrna = self.args.rrna
@@ -575,8 +588,6 @@ class Predictor:
                     self.run_with_chunks()
         if self.distributed:
             self._finalize_distributed()
-        if self.timer.enabled:
-            self.logger.info(self.timer.summary())
 
     def _host_shard_path(self, f):
         """Per-host output shard name. gz outputs keep their gz suffix so

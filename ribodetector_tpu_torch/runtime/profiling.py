@@ -1,25 +1,55 @@
-"""Per-stage wall-time counters and the --trace-dir profiler trace.
+"""Per-stage wall-time counters, their profiler ranges, and the --trace-dir
+profiler trace.
 
 The reference has no tracing at all (SURVEY.md 5: only tqdm progress bars).
 Here every run can report where time went via --profile.
 
-Thread attribution (round 5): the engine's work is spread over worker
-threads -- parse/inflate prefetchers, the H2D dispatcher pool, the writer
-thread and its deflate pool -- so main-thread timers alone cannot answer
-"what do I tune on N cores" (round-4 verdict: the paired soak's 6 deflate
-streams showed up nowhere except aggregate CPU util). Stages recorded off
-the main thread accumulate under their own (stage, thread-role) rows; the
-summary prints main-thread stages first (they sum to ~wall time) and then
-worker-side stages with the number of distinct threads that contributed,
-whose seconds OVERLAP the main-thread rows rather than adding to wall.
-Worker threads are named rd-<role> at creation so roles group cleanly.
+One span mechanism. While a torch profiler records anywhere in the process
+(--trace-dir, or a caller's own ``torch.profiler.profile``), every
+``StageTimer.stage(name)`` and every ``span(name)`` opens a profiler range
+``stage.<name>``, whether or not the timer counts: the ranges share the
+device trace's clock, so each gap in the card's activity can be put down
+to the stage the host had open then. ``span`` serves code that has no
+timer (the trainer, the CLI before the Predictor exists).
+
+Self time. Stages nest (``detect`` holds ``route``, which holds
+``infer_wait`` and ``write``); each thread keeps its own stack of open
+stages, and a stage adds to its row its duration less the time covered by
+its child stages, so the main thread's rows add up to no more than the
+wall and the wall less their sum is what no stage names.
+
+Thread attribution: the engine's work is spread over worker threads --
+parse/inflate prefetchers, the H2D dispatcher pool, the writer thread and
+its deflate pool -- so main-thread timers alone cannot say what to tune on
+N cores. Stages recorded off the main thread accumulate under their own
+(stage, thread-role) rows; the summary prints main-thread stages first and
+then worker-side stages with the number of distinct threads that
+contributed, whose seconds OVERLAP the main-thread rows rather than adding
+to wall. Worker threads are named rd-<role> at creation so roles group
+cleanly.
 """
 
 import os
 import threading
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
+
+
+def span(name):
+    """A profiler range "stage.<name>" while a torch profiler records in
+    this process; nothing otherwise. The check reads the process-wide flag
+    that ``profile`` sets on entry: the per-thread
+    ``torch.autograd._profiler_enabled()`` reads False on every thread, the
+    one that started the profiler included, when it records all threads
+    (``maybe_trace``). On a thread the profiler does not record, the range
+    costs a call and records nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(f"stage.{name}")
+    return nullcontext()
 
 
 def _role():
@@ -34,58 +64,67 @@ def _role():
 
 
 class StageTimer:
-    """Accumulates wall time and invocation counts per (stage, role).
+    """Accumulates self time and invocation counts per (stage, role).
 
     Thread-safe: stages may be entered concurrently from worker threads
     (one short lock take per stage exit; stages wrap multi-ms units of
-    work, so contention is negligible)."""
+    work, so contention is negligible). Each thread nests its stages on a
+    stack of its own."""
 
     def __init__(self, enabled=True):
         self.enabled = enabled
-        self.totals = defaultdict(float)  # main-thread stages (legacy keys)
+        self.totals = defaultdict(float)  # main-thread stages' self time
         self.counts = defaultdict(int)
         self.worker_totals = defaultdict(float)  # (role, stage) -> seconds
         self.worker_counts = defaultdict(int)
         self._threads = defaultdict(set)  # (role, stage) -> thread idents
         self._lock = threading.Lock()
+        self._local = threading.local()
         self._t0 = time.time()
 
     @contextmanager
     def stage(self, name):
-        if not self.enabled:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            role = _role()
-            if role == "main":
-                # single-writer on the main thread: keep the lock-free
-                # legacy counters (bench.py reads .totals directly)
-                self.totals[name] += dt
-                self.counts[name] += 1
-            else:
-                key = (role, name)
-                with self._lock:
-                    self.worker_totals[key] += dt
-                    self.worker_counts[key] += 1
-                    self._threads[key].add(threading.get_ident())
-
-    def add(self, name, seconds, n=1):
-        if self.enabled:
-            self.totals[name] += seconds
-            self.counts[name] += n
+        with span(name):
+            if not self.enabled:
+                yield
+                return
+            # each open stage's slot sums its children's durations
+            stack = getattr(self._local, "stack", None)
+            if stack is None:
+                stack = self._local.stack = []
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                own = dt - stack.pop()
+                if stack:
+                    stack[-1] += dt
+                role = _role()
+                if role == "main":
+                    # single writer on the main thread: no lock
+                    self.totals[name] += own
+                    self.counts[name] += 1
+                else:
+                    key = (role, name)
+                    with self._lock:
+                        self.worker_totals[key] += own
+                        self.worker_counts[key] += 1
+                        self._threads[key].add(threading.get_ident())
 
     def summary(self):
         wall = time.time() - self._t0
-        lines = [f"stage timings (total wall {wall:.2f}s):"]
+        lines = [f"stage timings, self time (total wall {wall:.2f}s):"]
         for name in sorted(self.totals, key=self.totals.get, reverse=True):
             t = self.totals[name]
             lines.append(
                 f"  {name:<16} {t:8.2f}s  {100 * t / wall:5.1f}%  x{self.counts[name]}"
             )
+        # main-thread self times never overlap, so the rest of the wall is
+        # what no stage names
+        rest = wall - sum(self.totals.values())
+        lines.append(f"  {'(unnamed)':<16} {rest:8.2f}s  {100 * rest / wall:5.1f}%")
         # snapshot under the lock: worker threads (prefetchers, deflate
         # pool) may still be finishing stages while another thread prints
         # the summary (serve --concurrency shares one timer across jobs)
@@ -123,13 +162,27 @@ class StageTimer:
             }
 
 
+def all_threads_config():
+    """A profiler ``experimental_config`` that records every thread of the
+    process, or None where the installed torch lacks the field (the
+    profiler then records the thread that started it)."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
 @contextmanager
 def maybe_trace(trace_dir, device_type="cpu"):
     """torch.profiler trace of the block when a directory is given: host
-    activity, plus the card's kernels and copies (CUPTI) when the run is on
-    the card. On exit the Chrome trace is written into trace_dir as
-    trace_<pid>_<ms>.json (open it in Perfetto or chrome://tracing; events
-    of category "kernel" are device busy time)."""
+    activity of every thread (the stages' ranges on the main thread and on
+    the rd-* workers; only the starting thread's where torch cannot record
+    them all, see all_threads_config), plus the card's kernels and copies
+    (CUPTI) when the run is on the card. On exit the Chrome trace is
+    written into trace_dir as trace_<pid>_<ms>.json (open it in Perfetto or
+    chrome://tracing; events of category "kernel" are device busy time)."""
     if not trace_dir:
         yield
         return
@@ -140,7 +193,8 @@ def maybe_trace(trace_dir, device_type="cpu"):
     activities = [ProfilerActivity.CPU]
     if device_type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 experimental_config=all_threads_config()) as prof:
         yield
         if device_type == "cuda":
             torch.cuda.synchronize()

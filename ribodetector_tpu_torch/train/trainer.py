@@ -70,6 +70,7 @@ from ribodetector_tpu_torch.models.bilstm import (
     save_params,
 )
 from ribodetector_tpu_torch.parallel.mesh import RowSplit, batch_sharded
+from ribodetector_tpu_torch.runtime.profiling import span
 from ribodetector_tpu_torch.train.loss import cross_entropy_loss
 from ribodetector_tpu_torch.train.metrics import confusion_counts
 from ribodetector_tpu_torch.train.optim import Adam, leaf_views
@@ -381,6 +382,13 @@ class TrainStep:
             self.optimizer.update(flat)
 
     def __call__(self, params, tokens, lengths, labels, rows=None):
+        # the host's part of a step: the replay (or the eager step) is
+        # launched inside it, so the device's gaps that fall in it are the
+        # host's time within a step and those outside it the time between
+        with span("train.step"):
+            return self._step(params, tokens, lengths, labels, rows)
+
+    def _step(self, params, tokens, lengths, labels, rows):
         if len(params) != len(self.optimizer.params) or any(
                 p is not q for p, q in zip(params, self.optimizer.params)):
             raise ValueError("the train step's params must be the optimizer's, in its order")
@@ -655,39 +663,41 @@ def fit(
             msg = f"epoch {epoch}: loss {metrics['train_loss']:.4f}"
             full = whole()
             if eval_data is not None:
-                m = evaluate(eval_step, full, eval_data)
+                with span("train.eval"):
+                    m = evaluate(eval_step, full, eval_data)
                 metrics.update(m)
                 msg += " " + " ".join(f"{k} {v:.4f}" for k, v in m.items())
             log_fn(msg)
             if checkpoint_dir is not None:
-                hidden = full.w_hh_f.shape[0]
-                meta = {
-                    "arch": f"BiLSTM 4x{hidden}x2 bidirectional",
-                    "epoch": epoch,
-                    "batch_size": batch_size,
-                    "metrics": metrics,
-                }
-                if writer:
-                    os.makedirs(checkpoint_dir, exist_ok=True)
-                    save_params(
-                        os.path.join(checkpoint_dir, f"epoch{epoch:03d}.npz"), full, meta
-                    )
-                if monitor in metrics:
-                    # loss-like monitors are minimized; everything else maximized
-                    sign = -1.0 if "loss" in monitor else 1.0
-                    score = sign * metrics[monitor]
-                else:
-                    if eval_data is not None:
-                        raise ValueError(
-                            f"monitor={monitor!r} not in metrics {sorted(metrics)}"
-                        )
-                    score = -metrics["train_loss"]
-                if best is None or score > best:
-                    best = score
+                with span("train.checkpoint"):
+                    hidden = full.w_hh_f.shape[0]
+                    meta = {
+                        "arch": f"BiLSTM 4x{hidden}x2 bidirectional",
+                        "epoch": epoch,
+                        "batch_size": batch_size,
+                        "metrics": metrics,
+                    }
                     if writer:
-                        save_params(os.path.join(checkpoint_dir, "best.npz"), full, meta)
-                if grid is not None:
-                    dist.barrier()
+                        os.makedirs(checkpoint_dir, exist_ok=True)
+                        save_params(os.path.join(checkpoint_dir, f"epoch{epoch:03d}.npz"),
+                                    full, meta)
+                    if monitor in metrics:
+                        # loss-like monitors are minimized; everything else maximized
+                        sign = -1.0 if "loss" in monitor else 1.0
+                        score = sign * metrics[monitor]
+                    else:
+                        if eval_data is not None:
+                            raise ValueError(
+                                f"monitor={monitor!r} not in metrics {sorted(metrics)}"
+                            )
+                        score = -metrics["train_loss"]
+                    if best is None or score > best:
+                        best = score
+                        if writer:
+                            save_params(os.path.join(checkpoint_dir, "best.npz"),
+                                        full, meta)
+                    if grid is not None:
+                        dist.barrier()
     finally:
         # the step's graphs and their memory go back before fit returns
         train_step.release()

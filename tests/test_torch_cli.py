@@ -206,10 +206,12 @@ def test_bf16_config(tmp_path, ref_params_path):
 @pytest.mark.parametrize("native", [True, False])
 def test_trace_dir(tmp_path, reads, native):
     """--trace-dir writes a torch.profiler Chrome trace of the run. The
-    profiler records the torch ops of the thread that started it: the
-    portable runner classifies on that thread, the native runner on its
-    rd-dispatch threads (on the card, CUPTI records the kernels of every
-    thread)."""
+    profiler records every thread where the installed torch can
+    (profiling.all_threads_config), and the thread that started it
+    elsewhere: the portable runner classifies on that thread, the native
+    runner on its rd-dispatch threads (test_torch_profiling.py holds the
+    worker threads' stages in the trace; on the card, CUPTI records the
+    kernels of every thread)."""
     names, seqs = reads
     inp = tmp_path / "in.fq"
     write_fastq(inp, names, seqs)
