@@ -13,12 +13,18 @@ Pipeline shape:
   any read, 2-bit (4 tokens/byte) for clean full-length reads; both are
   unpacked on the device (ops/dispatch.py).
 - the staging buffers are pinned host memory when the run is on the card,
-  so each batch's host->device copy is asynchronous; up to DEPTH batches
-  are in flight, and a staging slot is reused only after its batch's labels
-  came back, which orders strictly after its copy.
+  so each batch's host->device copy is asynchronous; up to DEPTH
+  device batches' rows are in flight, and a staging slot is reused only
+  after its batch's labels came back, which orders strictly after its
+  copy.
 - parse runs in a prefetch thread and file writes in a writer thread
   (gzip/zlib and file IO release the GIL), so decompress/parse of chunk
   i+1 and compressed writes of batch i-1 overlap the device.
+- a chunk's write overlaps the next chunks' routing and classify; the
+  input's last chunk, which nothing follows, is written in parts
+  (NativeRunner._part records, a quarter of the device batch): a part's
+  batches go to the card as soon as it is routed, and its labels, byte
+  gather and deflate run while the card classifies the chunk's later parts.
 
 All large buffers are allocated once and reused. FASTQ records with
 CRLF/trailing whitespace (flagged per record by the native parser) are
@@ -52,8 +58,9 @@ _BLOCK = 4 << 20
 
 
 class FastqChunkStream:
-    """Streams (data, offsets, ptokens, lengths, clean, n) chunks of up to
-    `records_per_chunk` FASTQ records from a plain or gzipped file; token
+    """Streams (data, offsets, ptokens, ptokens2, lengths, clean, b2ok, n,
+    final) chunks of up to `records_per_chunk` FASTQ records from a plain
+    or gzipped file (final: the input's last window); token
     rows are base-5 packed ([n, (max_len+2)//3] uint8), `data` is a reused
     window bytearray the offsets index into.
 
@@ -354,11 +361,13 @@ class FastqChunkStream:
             self._avg_rec = 0.5 * self._avg_rec + 0.5 * (used / n)
             self._tail = bytes(win[used:pos])
             _, offsets, ptokens, lengths, clean, ptokens2, b2ok = self._slot(si)
+            # the input's last window: nothing is left to read or to parse
+            final = self._eof and not self._carry and not self._tail
             yield (
                 data, offsets[:n], ptokens[:n], ptokens2[:n], lengths[:n],
-                clean[:n], b2ok[:n], n,
+                clean[:n], b2ok[:n], n, final,
             )
-            if self._eof and not self._carry and not self._tail:
+            if final:
                 return
 
     def close(self):
@@ -546,6 +555,7 @@ class _RecordCursor:
         self._c = None  # [data, offsets, ptokens, ptokens2, lengths, b2ok, n, clean, recs]
         self._pos = 0
         self.eof = False
+        self.final = False  # the current window is the input's last
 
     _RECS_UNSET = object()
     _N = 6  # record count's index in self._c
@@ -557,7 +567,8 @@ class _RecordCursor:
             if chunk is None:
                 self._c, self.eof = None, True
                 return False
-            data, offsets, ptokens, ptokens2, lengths, clean, b2ok, n = chunk
+            (data, offsets, ptokens, ptokens2, lengths, clean, b2ok, n,
+             self.final) = chunk
             # dirty-record text is materialized lazily at first take():
             # skip() drives ready() over every chunk too (--hosts round
             # robin, --resume restart), and re-parsing windows the host
@@ -911,10 +922,14 @@ def records_from_chunk_bytes(data, offsets, n):
 
 
 class _BucketStager:
-    """Reusable staging buffers for one length bucket: acquire() pops a free
-    (tokens [rows, pl_b] uint8, lengths [rows] int32, rows_idx [cap] int32)
-    triple or allocates one; release() returns it once the batch's labels
-    were fetched. Lazy, so buckets that never see a read cost nothing.
+    """Reusable staging buffers for one length bucket: acquire(cap) pops a
+    free (tokens [rows, pl_b] uint8, lengths [rows] int32, rows_idx [cap]
+    int32) triple of that capacity or allocates one (rows = cap, or 2 * cap
+    for pairs: R1 rows first, R2 rows from row cap); release() returns it
+    once the batch's labels were fetched. Lazy, so buckets that never see a
+    read cost nothing. A run holds two capacities at most: the device
+    batch, and a write part (NativeRunner._part) for the input's last
+    chunk.
 
     With pinned=True (a run on the card) the token and length buffers are
     page-locked host tensors viewed as numpy, so their host->device copies
@@ -922,10 +937,10 @@ class _BucketStager:
     back, so a pinned source is never overwritten while its copy is in
     flight."""
 
-    def __init__(self, rows, pl, cap, pinned=False):
-        self.rows, self.pl, self.cap = rows, pl, cap
-        self.pinned = pinned
-        self._free = []
+    def __init__(self, pl, paired, pinned=False):
+        self.pl, self.paired, self.pinned = pl, paired, pinned
+        self._free = {}  # capacity -> free triples
+        self.allocated = 0  # bytes of token and length buffers allocated
 
     def _host(self, shape, dtype):
         if not self.pinned:
@@ -935,23 +950,24 @@ class _BucketStager:
         tdt = {np.uint8: torch.uint8, np.int32: torch.int32}[dtype]
         return torch.zeros(shape, dtype=tdt, pin_memory=True).numpy()
 
-    def acquire(self):
-        if self._free:
-            return self._free.pop()
-        tok = self._host((self.rows, self.pl), np.uint8)
+    def acquire(self, cap):
+        free = self._free.get(cap)
+        if free:
+            return free.pop()
+        rows = 2 * cap if self.paired else cap
+        tok = self._host((rows, self.pl), np.uint8)
         tok.fill(_PAD_BYTE)
-        return (
-            tok,
-            self._host((self.rows,), np.int32),
-            np.zeros(self.cap, np.int32),
-        )
+        lens = self._host((rows,), np.int32)
+        self.allocated += tok.nbytes + lens.nbytes
+        return tok, lens, np.zeros(cap, np.int32)
 
     def release(self, bufs):
-        self._free.append(bufs)
+        self._free.setdefault(len(bufs[2]), []).append(bufs)
 
 
 class _ChunkAcc:
-    """Write accumulator for bucketed runs (normally one per logical chunk).
+    """Write accumulator for bucketed runs: one per logical chunk, or one
+    per part (NativeRunner._part records) of the input's last chunk.
 
     Bucket routing reorders device batches, so labels scatter back into an
     accumulator-ordered array and the accumulator writes only when its last
@@ -973,7 +989,7 @@ class _ChunkAcc:
     accumulator (same chunk, same file handles) when that accumulator
     alone would span too many windows. close_fhs marks the chunk's final
     accumulator (parts mode closes the chunk's part files after it
-    writes).
+    writes, and the --resume manifest advances only then).
     """
 
     MAX_WINDOWS = 3  # per side, per accumulator
@@ -1012,6 +1028,16 @@ class NativeRunner:
 
     DEPTH = 8  # in-flight device batches
     PREFETCH = 1  # chunks buffered per _Prefetcher queue
+    # Write parts: the input's last chunk has its accumulator cut every
+    # dbs >> PART_SHIFT records, so that its first parts' labels, byte
+    # gathers and deflate run while the card classifies the rest (an
+    # earlier chunk's write already runs while the next chunks are routed
+    # and classified). A part flushes its lanes down the four-rung ladder
+    # (_dispatch_bucket), so there is no cut where the lowest rung under a
+    # part would fall below LADDER_MIN rows, the smallest batch a flush
+    # dispatches, or where a chunk cannot hold two parts.
+    PART_SHIFT = 2
+    LADDER_MIN = 1024
 
     def __init__(self, predictor):
         self.p = predictor
@@ -1040,7 +1066,12 @@ class NativeRunner:
         # (--chunk_size parity) and bounds host memory; the device call
         # itself is lifted to up to 131072 rows per input file to cut
         # per-call overhead.
-        self.dbs = max(predictor.batch_size, min(131072, self._records_per_chunk()))
+        rpc = self._records_per_chunk()
+        self.dbs = max(predictor.batch_size, min(131072, rpc))
+        part = self.dbs >> self.PART_SHIFT
+        self._part = (
+            part if part >> 4 >= self.LADDER_MIN and rpc >= 2 * part else None
+        )
         self._need_lengths = predictor.semantics == "packed"
         # 2-bit transfer lane for clean full-length reads (runtime.b2=false
         # pins everything to base-5; labels are identical either way)
@@ -1139,10 +1170,9 @@ class NativeRunner:
             p._build_infers(packed_max_len=tb, emit=emit, pad_gap=p.len - tb)
             for tb in buckets
         ]
-        rows = 2 * self.dbs if p.is_paired else self.dbs
-        pinned = p.devices[0].type == "cuda"
+        paired, pinned = p.is_paired, p.devices[0].type == "cuda"
         stagers = [
-            _BucketStager(rows, native.b5_packed_len(tb), self.dbs, pinned)
+            _BucketStager(native.b5_packed_len(tb), paired, pinned)
             for tb in buckets
         ]
         if self._b2_enabled:
@@ -1157,7 +1187,7 @@ class NativeRunner:
                 p._build_infers(packed_max_len=p.len, emit=emit, pad_gap=0, fmt="b2")
             )
             stagers.append(
-                _BucketStager(rows, native.b2_packed_len(p.len), self.dbs, pinned)
+                _BucketStager(native.b2_packed_len(p.len), paired, pinned)
             )
         return infers, stagers
 
@@ -1206,25 +1236,34 @@ class NativeRunner:
     def _dispatch_bucket(self, pending, infers, stagers, partial, b, acc):
         tok, lens, idxs, fill = partial[b]
         partial[b] = None
-        bs = self.dbs
-        # Partial batches (the per-chunk bucket flush) dispatch at the
-        # smallest power-of-two ladder size >= fill instead of the full
-        # device batch: a flush remnant pays <= 2x its own rows, not a full
-        # [dbs, T_b] compute + transfer.
+        bs = len(idxs)
+        # Partial batches (the bucket flush of a chunk or a part) dispatch
+        # at the smallest power-of-two ladder size >= fill instead of the
+        # full staging batch: a flush remnant pays <= 2x its own rows, not
+        # a full [bs, T_b] compute + transfer.
         bsel = bs
         for k in (4, 3, 2, 1):
             cand = bs >> k
-            if cand >= 1024 and fill <= cand:
+            if cand >= self.LADDER_MIN and fill <= cand:
                 bsel = cand
                 break
         paired = self.p.is_paired
+        need_len = self._need_lengths
+        if bsel < bs and paired:
+            # R2 rows move from the full-batch offset to the sliced one
+            # (regions never overlap: bsel + fill <= 2*bsel <= bs)
+            tok[bsel : bsel + fill] = tok[bs : bs + fill]
+            if need_len:
+                lens[bsel : bsel + fill] = lens[bs : bs + fill]
+        if fill < bsel:
+            # the padding rows of a reused buffer still hold an earlier
+            # batch's reads: pad them as a fresh buffer is, so that a
+            # classify call holds no read twice
+            for r in (fill, bsel + fill) if paired else (fill,):
+                tok[r : r + bsel - fill] = _PAD_BYTE
+                if need_len:
+                    lens[r : r + bsel - fill] = 0
         if bsel < bs:
-            if paired:
-                # R2 rows move from the full-batch offset to the sliced one
-                # (regions never overlap: bsel + fill <= 2*bsel <= bs)
-                tok[bsel : bsel + fill] = tok[bs : bs + fill]
-                if self._need_lengths:
-                    lens[bsel : bsel + fill] = lens[bs : bs + fill]
             st = tok[: 2 * bsel] if paired else tok[:bsel]
             sl = lens[: 2 * bsel] if paired else lens[:bsel]
         else:
@@ -1235,18 +1274,29 @@ class NativeRunner:
             )
         acc.inflight += 1
         pending.append((acc, (tok, lens, idxs), fill, fut, stagers[b]))
-        if len(pending) > self.DEPTH:
+        # up to DEPTH device batches in flight, counted in rows: a part's
+        # smaller batches hold no more staging than DEPTH full ones
+        self._pending_rows += bs
+        if self._pending_rows > self.DEPTH * self.dbs:
             self._finish_bucketed(*pending.popleft())
 
     def _finish_bucketed(self, acc, bufs, fill, fut, stager):
         with self.p.timer.stage("infer_wait"):
             labels = fut.result()[:fill]
         tok, lens, idxs = bufs
+        self._pending_rows -= len(idxs)
         acc.labels[idxs[:fill]] = labels
         stager.release(bufs)
         acc.inflight -= 1
         if acc.closed and acc.inflight == 0:
             self._write_chunk_bucketed(acc)
+
+    def _collect_done(self, pending):
+        """Take in the labels of the oldest batches whose classify already
+        returned, without blocking: FIFO, so accumulators still write in
+        input order."""
+        while pending and pending[0][3].done():
+            self._finish_bucketed(*pending.popleft())
 
     def _route_into(self, pending, infers, stagers, partial, acc, b_idx,
                     sides, row0=0):
@@ -1255,7 +1305,6 @@ class NativeRunner:
         2-bit lane); `sides` is one (b5_rows, b2_rows, lengths) triple per
         input file -- the 2-bit lane copies from the b2 rows, every other
         lane from base-5."""
-        bs = self.dbs
         need_len = self._need_lengths
         b2lane = len(stagers) - 1 if self._b2_enabled else -1
         t5a, t2a, lna = sides[0]
@@ -1273,8 +1322,9 @@ class NativeRunner:
             off = 0
             while off < len(sel):
                 if partial[b] is None:
-                    partial[b] = [*stagers[b].acquire(), 0]
+                    partial[b] = [*stagers[b].acquire(self._cap), 0]
                 tok, ln, idxs, fill = partial[b]
+                bs = len(idxs)
                 m = min(bs - fill, len(sel) - off)
                 s = slice(off, off + m) if contiguous else sel[off : off + m]
                 tok[fill : fill + m] = src_a[s, :pl]
@@ -1297,7 +1347,7 @@ class NativeRunner:
 
     def _flush_buckets(self, pending, infers, stagers, partial, acc):
         # stage "flush": the partial batches' dispatch and, where they are
-        # done, the accumulator's labels and writes
+        # done, the accumulators' labels and writes
         with self.p.timer.stage("flush"):
             for b in range(len(stagers)):
                 if partial[b] is not None and partial[b][3]:
@@ -1305,8 +1355,22 @@ class NativeRunner:
             acc.closed = True
             if acc.inflight == 0 and acc.n:
                 self._write_chunk_bucketed(acc)
+            self._collect_done(pending)
+
+    def _cut(self, pending, infers, stagers, partial, acc):
+        """Close `acc` mid-chunk (a write part, or the window-span bound):
+        its batches go to the card now and it writes when they return;
+        returns the chunk's next accumulator (same chunk, same handles)."""
+        acc.close_fhs = False
+        self._flush_buckets(pending, infers, stagers, partial, acc)
+        return _ChunkAcc(acc.ci, acc.fhs, len(acc.labels))
 
     def _write_chunk_bucketed(self, acc):
+        if self.p.timer.enabled and any(
+            a.ci == acc.ci and not fut.done() for a, _, _, fut, _ in self._pending
+        ):
+            # written while a later part of its chunk is still on the card
+            self.p.timer.count("write_parts_overlapped")
         counts, fhs = self._counts, acc.fhs
         paired = self.p.is_paired
         labels = acc.labels
@@ -1457,7 +1521,8 @@ class NativeRunner:
             with timer.stage("steps"):
                 infers, stagers = self._bucket_infers(buckets)
             partial = [None] * len(stagers)
-            pending = deque()
+            pending = self._pending = deque()
+            self._pending_rows = 0
             ci = resume.chunks_done if resume else 0
             if ci:
                 self._skip_records(curs, ci * rpc)
@@ -1483,25 +1548,37 @@ class NativeRunner:
                     chunk_fhs = parts.open_chunk(p, ci)
                 else:
                     chunk_fhs = fhs
-                acc = _ChunkAcc(ci, chunk_fhs, rpc)
+                # the input's last chunk (its window is the last) is written
+                # in parts; its write would otherwise start only when its
+                # last batch returns, with the card idle behind it
+                part = self._part if any(c.final for c in curs) else None
+                # rows a staging buffer holds per side: a part's lanes fill
+                # no more than the part
+                self._cap = part or self.dbs
+                acc = _ChunkAcc(ci, chunk_fhs, part or rpc)
                 done = 0
                 while done < rpc:
                     with timer.stage("parse"):
                         if not all(c.ready() for c in curs):
                             break
+                    if part and acc.n >= part:
+                        # a full part with more of its chunk to come: it
+                        # goes to the card, and writes while the next
+                        # parts are routed and classified
+                        acc = self._cut(pending, infers, stagers, partial, acc)
                     # route: the take, the lane of each record and the
                     # row copies into staging; the dispatches, waits and
                     # writes they set off are its child stages
                     with timer.stage("route"):
                         cnt = min(rpc - done, *(c.chunk_avail() for c in curs))
+                        if part:
+                            cnt = min(cnt, part - acc.n)
                         takes = [c.take(cnt) for c in curs]
                         new_ids = [id(t[0]) for t in takes]
                         if acc.segs and acc.would_overflow(new_ids):
                             # per-acc window-span bound (see _ChunkAcc): split the
                             # write accumulator mid-chunk
-                            acc.close_fhs = False
-                            self._flush_buckets(pending, infers, stagers, partial, acc)
-                            acc = _ChunkAcc(ci, chunk_fhs, rpc)
+                            acc = self._cut(pending, infers, stagers, partial, acc)
                         # global budget: drain finished batches until the pinned
                         # window count (all unwritten accs) fits the stream slot
                         # pools -- older accs write FIFO and unpin as we drain

@@ -18,6 +18,11 @@ stages, and a stage adds to its row its duration less the time covered by
 its child stages, so the main thread's rows add up to no more than the
 wall and the wall less their sum is what no stage names.
 
+Counters: ``StageTimer.count(name)`` counts events beside the stages while
+the timer is on, and the summary prints them after the stages; the native
+runner counts ``write_parts_overlapped``, the write parts of a chunk written
+while a later part of the same chunk still had a batch on the card.
+
 Thread attribution: the engine's work is spread over worker threads --
 parse/inflate prefetchers, the H2D dispatcher pool, the writer thread and
 its deflate pool -- so main-thread timers alone cannot say what to tune on
@@ -78,6 +83,7 @@ class StageTimer:
         self.worker_totals = defaultdict(float)  # (role, stage) -> seconds
         self.worker_counts = defaultdict(int)
         self._threads = defaultdict(set)  # (role, stage) -> thread idents
+        self.counters = defaultdict(int)  # events counted beside the stages
         self._lock = threading.Lock()
         self._local = threading.local()
         self._t0 = time.time()
@@ -113,6 +119,12 @@ class StageTimer:
                         self.worker_counts[key] += 1
                         self._threads[key].add(threading.get_ident())
 
+    def count(self, name, n=1):
+        """Add n to the counter `name` (nothing while the timer is off)."""
+        if self.enabled:
+            with self._lock:
+                self.counters[name] += n
+
     def summary(self):
         wall = time.time() - self._t0
         lines = [f"stage timings, self time (total wall {wall:.2f}s):"]
@@ -132,6 +144,7 @@ class StageTimer:
             wt = dict(self.worker_totals)
             wc = dict(self.worker_counts)
             nth = {k: len(v) for k, v in self._threads.items()}
+            counters = dict(self.counters)
         if wt:
             lines.append(
                 "  worker threads (overlap the rows above; seconds summed "
@@ -151,6 +164,10 @@ class StageTimer:
                         "s" if nthreads != 1 else "",
                     )
                 )
+        if counters:
+            lines.append("  counters:")
+            for name in sorted(counters):
+                lines.append(f"  {name:<16} {counters[name]:8d}")
         return "\n".join(lines)
 
     def worker_seconds(self):

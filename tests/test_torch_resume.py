@@ -388,3 +388,106 @@ def test_resolved_kernel_names_the_build():
                           compute_dtype="float32")
     assert resolved_kernel(cpu) == {"kernel": "plain", "kernel_mode": None,
                                     "kernel_build": None}
+
+
+
+@pytest.fixture(scope="module")
+def ref10000(tmp_path_factory, ref_params_path):
+    """10000 reads of seed 23 at -m 4 (4096-record chunks: 4096, 4096 and
+    a last chunk of 1808) and the JAX CLI's uninterrupted outputs on
+    them."""
+    d = tmp_path_factory.mktemp("ref10000")
+    assert_margins(ref_params_path, fastq_seqs(10000, 23), 60)
+    write_fastq(d / "in.fq", 10000, seed=23)
+    jax_run(d / "in.fq", d / "ref.fq", d / "refr.fq", ["-m", "4"])
+    return d
+
+
+def records_in(path, end=None):
+    with open(path, "rb") as fh:
+        return fh.read(end).count(b"\n") // 4
+
+
+@pytest.mark.parametrize("layout", ["resume", "coordinated"])
+def test_chunk_of_several_write_parts_resumes(tmp_path, monkeypatch, ref10000,
+                                              layout):
+    """The input's last chunk written in parts (LADDER_MIN lowered so that
+    -m 4's 4096-record chunks cut parts of 1024): a run cut after a
+    completed chunk resumes to the JAX reference's outputs, and every
+    manifest, when written, names only chunks whose every part is on disk.
+    "resume" is cut after chunk 1, so that the resumed run writes the last
+    chunk in two parts. "coordinated" is the --coordinator parts layout:
+    its two hosts run one after the other in this process (the group's
+    barriers left out, the merge called after both); host 0, which owns
+    chunks 0 and 2, is cut after chunk 0 and relaunched with --resume."""
+    from types import SimpleNamespace
+
+    from ribodetector_tpu_torch.cli import _detect, build_arg_parser
+    from ribodetector_tpu_torch.runtime.native_pipeline import (
+        DistributedParts,
+        NativeRunner,
+    )
+    from ribodetector_tpu_torch.runtime.pipeline import Predictor
+
+    monkeypatch.setattr(NativeRunner, "LADDER_MIN", 64)
+    inp, out, rr = ref10000 / "in.fq", tmp_path / "p.fq", tmp_path / "pr.fq"
+    parts_written, checked = {}, []  # checked: (chunk, parts, records, on disk)
+    write = NativeRunner._write_chunk_bucketed
+
+    def counting_write(self, acc):
+        parts_written[acc.ci] = parts_written.get(acc.ci, 0) + 1
+        return write(self, acc)
+
+    monkeypatch.setattr(NativeRunner, "_write_chunk_bucketed", counting_write)
+    if layout == "resume":
+        owner, complete = ResumeState, ResumeState.complete_chunk
+
+        def checking(self, p, ci, fhs, num_read, counts):
+            complete(self, p, ci, fhs, num_read, counts)
+            offsets = json.load(open(self.manifest_path))["offsets"]
+            checked.append((ci, parts_written[ci], num_read,
+                            sum(records_in(f, end) for f, end in offsets.items())))
+
+        def launch(extra=(), host=None):
+            run(inp, out, rr, ["-m", "4", *extra])
+    else:
+        owner, complete = DistributedParts, DistributedParts.complete_chunk
+
+        def checking(self, p, ci, num_read, counts):
+            complete(self, p, ci, num_read, counts)
+            checked.append((ci, parts_written[ci], min(4096, 10000 - 4096 * ci),
+                            sum(records_in(self._part_path(str(f), ci))
+                                for f in (out, rr))))
+
+        def launch(extra=(), host=0):
+            args = build_arg_parser().parse_args(
+                [*argv(inp, out, rr, ["-m", "4", *extra]), "--coordinator",
+                 "127.0.0.1:1", "--num-hosts", "2", "--host-id", str(host)])
+            args.hosts = 2
+            _detect(args, "cpu")
+
+        monkeypatch.setattr(Predictor, "_finalize_distributed", lambda self: None)
+
+    def crashing(self, p, ci, *a):
+        checking(self, p, ci, *a)
+        if ci == (1 if layout == "resume" else 0):
+            raise KeyboardInterrupt("simulated crash")
+
+    monkeypatch.setattr(owner, "complete_chunk", crashing)
+    with pytest.raises(KeyboardInterrupt):
+        launch(["--resume"])
+    monkeypatch.setattr(owner, "complete_chunk", checking)
+    parts_written.clear()  # the cut run may have begun a later chunk
+    launch(["--resume"])
+    if layout == "coordinated":
+        launch(["--resume"], host=1)
+        p = SimpleNamespace(output=[str(out)], rrna=[str(rr)], is_paired=False,
+                            args=SimpleNamespace(ensure="none"))
+        DistributedParts(p).merge(p)
+    same(out, ref10000 / "ref.fq")
+    same(rr, ref10000 / "refr.fq")
+    # every chunk's manifest once, each naming only records on disk; the
+    # last chunk written in two parts, the others whole
+    assert sorted(c[0] for c in checked) == [0, 1, 2]
+    assert {ci: parts for ci, parts, _, _ in checked} == {0: 1, 1: 1, 2: 2}
+    assert all(want == got for _, _, want, got in checked), checked
