@@ -9,8 +9,18 @@ weights, semantics and compute dtype; the mix adds its own (``-e``).
 Set-up writes the library from the seed and makes one warm-up call (the
 parity probe runs and fills its marker, the kernels load, as on a user's
 first library on a machine). The window then calls the CLI until
-``--seconds`` have passed; every call is whole. A traced run profiles the
-whole window with the StageTimer on.
+``--seconds`` have passed; every call is whole.
+
+A traced run turns the Predictors' StageTimers on and splits the window
+into two stretches of whole calls, each until half of ``--seconds`` has
+passed: first the unprofiled stretch, where no torch profiler runs, then
+the profiled one under the trace's slice. The profiler records every op a
+call launches and slows the calls by as much as they launch, so the
+program's stage times and the wall-clock ratios are read over the
+unprofiled stretch, at the untraced pace, and only the device trace over
+the profiled one (``harness/readers.py`` ``part``). The record keeps each
+stretch's calls, wall, reads, bases, start-up seconds and stage totals, and
+the profiled stretch's kernel work and trace summary.
 
 Only ``sample_calls`` calls, drawn from the seed as the window goes (a
 reservoir sample), keep their outputs; every other call's are checked to
@@ -107,61 +117,89 @@ def setup(run):
     return state
 
 
+class Calls:
+    """The window's calls, numbered from 0 across its stretches: each
+    call's missing files counted, and a reservoir of ``sample_calls``
+    calls drawn from the seed keeps its outputs."""
+
+    def __init__(self, run, state, preds, kernel):
+        self.run, self.state, self.preds, self.kernel = run, state, preds, kernel
+        self.sample = int(run.rng("kernel").integers(0, 2)) if run.mix.get("kernel_sample") else -1
+        self.keep_n, self.pick = run.mix["sample_calls"], run.rng("sample")
+        self.n, self.kept, self.missing = 0, [], 0
+        L = run.cfg["len"]
+        self.reads = sum(len(lengths) for _, lengths in state["sides"])
+        self.bases = sum(work.bases(lengths, L) for _, lengths in state["sides"])
+
+    def one(self):
+        run, state, k = self.run, self.state, self.n
+        self.kernel.on = k == self.sample
+        with run.span("bench.call"):
+            call(run, state, k)
+        self.kernel.on = False
+        self.missing += missing_files(run, state, k)
+        if len(self.kept) < self.keep_n:
+            self.kept.append(k)
+        else:
+            j = int(self.pick.integers(0, k + 1))
+            if j < self.keep_n:
+                self.kept[j], dropped = k, self.kept[j]
+            else:
+                dropped = k
+            shutil.rmtree(call_dir(run, dropped))
+        gc.collect()
+        self.n = k + 1
+
+    def stretch(self, seconds, last):
+        """Whole calls until `seconds` have passed, and in the window's last
+        stretch until the sampled calls have run -> the stretch's tally."""
+        first, timers, load_s = self.n, len(self.preds.timers), self.preds.load_s
+        t0 = time.perf_counter()
+        while True:
+            self.one()
+            if (time.perf_counter() - t0 >= seconds
+                    and (not last or (self.n > self.sample and self.n >= self.keep_n))):
+                break
+        self.run.sync()
+        wall = time.perf_counter() - t0
+        calls = self.n - first
+        return {"wall_s": wall, "calls": calls, "reads": calls * self.reads,
+                "bases": calls * self.bases, "load_model_s": self.preds.load_s - load_s,
+                "timers": (timers, len(self.preds.timers))}
+
+
 def window(run, state):
-    sl = Slice(run.tmp, run.device) if run.trace else None
-    sample = int(run.rng("kernel").integers(0, 2)) if run.mix.get("kernel_sample") else -1
-    keep_n, pick = run.mix["sample_calls"], run.rng("sample")
-    kept, faults = [], 0
     # what set-up left is never collected again: the collection after each
     # call walks only that call's objects
     gc.collect()
     gc.freeze()
-    with hooks.predictors(run) as preds, hooks.stage_spans(run), \
-            hooks.kernel_outputs(run) as kernel:
-        if sl:
+    with hooks.predictors(run) as preds, hooks.kernel_outputs(run) as kernel:
+        calls = Calls(run, state, preds, kernel)
+        if run.trace:
+            parts = {"unprofiled": calls.stretch(run.seconds / 2, last=False)}
+            sl = Slice(run.tmp, run.device)
             sl.start()
-        t0 = time.perf_counter()
-        calls = 0
-        while True:
-            kernel.on = calls == sample
-            with run.span("bench.call"):
-                call(run, state, calls)
-            kernel.on = False
-            faults += missing_files(run, state, calls)
-            if len(kept) < keep_n:
-                kept.append(calls)
-            else:
-                j = int(pick.integers(0, calls + 1))
-                if j < keep_n:
-                    kept[j], dropped = calls, kept[j]
-                else:
-                    dropped = calls
-                shutil.rmtree(call_dir(run, dropped))
-            gc.collect()
-            calls += 1
-            if (time.perf_counter() - t0 >= run.seconds and calls > sample
-                    and calls >= keep_n):
-                break
-        run.sync()
-        wall = time.perf_counter() - t0
-        if sl:
+            parts["profiled"] = calls.stretch(run.seconds / 2, last=True)
             sl.stop()
             sl.finish()
+            parts["profiled"]["trace"] = sl.summary
+        else:
+            parts = {"window": calls.stretch(run.seconds, last=True)}
     gc.unfreeze()
-    L = run.cfg["len"]
-    reads = sum(len(lengths) for _, lengths in state["sides"])
-    bases = sum(work.bases(lengths, L) for _, lengths in state["sides"])
-    state.update(calls=calls, kept=sorted(kept), missing=faults, kernel_rows=kernel.rows)
-    # every read of the window ran on the one kernel mode the Predictors
-    # ran, and the slice is the window
+    state.update(calls=calls.n, kept=sorted(calls.kept), missing=calls.missing,
+                 kernel_rows=kernel.rows)
+    # every read of the window ran on the one kernel mode the Predictors ran
     modes = sorted(preds.modes)
-    return {
-        "wall_s": wall, "attempted": calls, "failed": 0,
-        "reads": calls * reads, "bases": calls * bases,
-        "kernel_work": {modes[0]: (calls * bases, calls * reads)} if len(modes) == 1 else {},
-        "load_model_s": preds.load_s, "stages": preds.stages(),
-        "trace": sl.summary if sl else None,
-    }
+    for p in parts.values():
+        first, last = p.pop("timers")
+        p["kernel_work"] = {modes[0]: (p["bases"], p["reads"])} if len(modes) == 1 else {}
+        if run.trace:
+            p["stages"] = preds.stages(first, last)
+    rec = {"attempted": calls.n, "failed": 0}
+    if not run.trace:
+        return {**rec, **parts["window"]}
+    return {**rec, "stretches": parts,
+            **{k: sum(p[k] for p in parts.values()) for k in ("wall_s", "reads", "bases")}}
 
 
 def encoded(run, state):

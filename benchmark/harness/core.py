@@ -12,9 +12,12 @@ cell, mix or metric is new files and entries, never an edit.
 An entry module has ``setup(run) -> state``, ``window(run, state) ->
 record`` and ``check(run, state, record) -> {number: value}``. The record
 holds what the metrics read: ``wall_s``, the work done, the stage totals,
-the trace slice's summary. The check runs after the window has closed and
-the device's peak memory has been read; each number it returns is held to
-its limit (value <= limit), and the run is correct when every one holds.
+the trace slice's summary; a traced detect window holds them per stretch
+(``stretches``, see harness/readers.py), and the result line prints each
+stretch's calls, wall, reads and stage totals. The check runs after the
+window has closed and the device's peak memory has been read; each number
+it returns is held to its limit (value <= limit), and the run is correct
+when every one holds.
 """
 
 import argparse
@@ -29,6 +32,8 @@ import time
 import traceback
 import zlib
 from contextlib import nullcontext
+
+from harness.readers import part
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(BENCH_DIR)
@@ -195,11 +200,15 @@ def run_cell(argv=None, device="cuda", overrides=None, t_start=None):
             "device": device_info(run, peak),
         }
         if run.trace:
-            summary = record["trace"]
+            summary = part(record, "profiled")["trace"]
             result["device"]["busy_s"] = summary["busy_s"]
             result["device"]["window_s"] = summary["window_s"]
             result["breakdown"] = {"device_ops": [list(x) for x in summary["device_ops"]],
                                    "idle_gaps": [list(x) for x in summary["idle_gaps"]]}
+        if "stretches" in record:  # the profiler's cost: each stretch's pace
+            result["stretches"] = {
+                name: {k: p[k] for k in ("calls", "wall_s", "reads", "stages")}
+                for name, p in record["stretches"].items()}
         result["compared"] = compared
         return result
     finally:

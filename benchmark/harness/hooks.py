@@ -5,9 +5,10 @@ from its own files: nothing inside the program changes.
   start-up span), its StageTimer kept to be read after the window (in a
   traced run switched on, as the program's ``--profile`` does) and the
   kernel mode it runs noted (its precision after the parity probe, and its
-  compute dtype where that is not float32: "high", "high.bfloat16").
-- ``stage_spans``: in a traced run each StageTimer stage also opens a
-  profiler range "stage.<name>", which names the device's idle gaps.
+  compute dtype where that is not float32: "high", "high.bfloat16"). A
+  stage opens its own profiler range "stage.<name>" while a profiler
+  records (the program's ``runtime/profiling.py``), which names the
+  device's idle gaps.
 - ``kernel_outputs``: while switched on, each classify call's tokens and
   logits (the kernels' input and output) copied to the host, for the
   reference to judge the kernels by.
@@ -36,11 +37,12 @@ class Predictors:
     def __init__(self):
         self.timers, self.modes, self.load_s = [], set(), 0.0
 
-    def stages(self):
+    def stages(self, first=0, last=None):
         """Main-thread stage seconds {"parse": s, ...} and worker ones
-        {"rd-deflate:deflate": s, ...}, summed over the timers kept."""
+        {"rd-deflate:deflate": s, ...}, summed over the timers kept
+        [first:last] (one a Predictor, so one a CLI call)."""
         main, worker = {}, {}
-        for t in self.timers:
+        for t in self.timers[first:last]:
             for k, v in t.totals.items():
                 main[k] = main.get(k, 0.0) + v
             for (role, name), v in t.worker_totals.items():
@@ -68,24 +70,6 @@ def predictors(run):
 
     with patched(Predictor, "load_model", load_model) as orig:
         yield rec
-
-
-@contextmanager
-def stage_spans(run):
-    if not run.trace:
-        yield
-        return
-    from torch.profiler import record_function
-
-    from ribodetector_tpu_torch.runtime.profiling import StageTimer
-
-    @contextmanager
-    def stage(self, name):
-        with record_function(f"stage.{name}"), orig(self, name):
-            yield
-
-    with patched(StageTimer, "stage", stage) as orig:
-        yield
 
 
 class KernelOutputs:

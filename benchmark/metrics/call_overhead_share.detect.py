@@ -1,6 +1,6 @@
 """call_overhead_share.detect: Main-thread StageTimer "open" + "steps" + "close" (a call's
 streams, outputs and threads opened, its classify steps built, and all of it closed again)
-over the window's wall, in %."""
+over the unprofiled stretch's wall, in %."""
 
 from harness.readers import main_share
 

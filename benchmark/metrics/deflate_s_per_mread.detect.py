@@ -1,5 +1,5 @@
 """deflate_s_per_mread.detect: StageTimer "deflate" seconds summed over the rd-deflate threads, per
-10^6 reads."""
+10^6 reads of the unprofiled stretch."""
 
 from harness.readers import per_mread
 

@@ -1,5 +1,5 @@
 """device_idle.detect: 1 - the union of kernel, copy and memset intervals over the traced
-slice's span, in %."""
+slice's span (the profiled stretch), in %."""
 
 from harness.readers import idle
 

@@ -1,5 +1,5 @@
 """infer_wait_share.detect: Main-thread StageTimer "infer_wait" (waiting on H2D, classify and
-D2H) over the window's wall, in %."""
+D2H) over the unprofiled stretch's wall, in %."""
 
 from harness.readers import main_share
 

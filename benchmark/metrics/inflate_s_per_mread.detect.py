@@ -1,5 +1,5 @@
 """inflate_s_per_mread.detect: StageTimer "inflate" seconds summed over the rd-inflate threads, per
-10^6 reads."""
+10^6 reads of the unprofiled stretch."""
 
 from harness.readers import per_mread
 

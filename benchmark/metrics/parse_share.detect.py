@@ -1,4 +1,4 @@
-"""parse_share.detect: Main-thread StageTimer "parse" over the window's wall, in %."""
+"""parse_share.detect: Main-thread StageTimer "parse" over the unprofiled stretch's wall, in %."""
 
 from harness.readers import main_share
 

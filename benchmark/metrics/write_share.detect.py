@@ -1,4 +1,4 @@
-"""write_share.detect: Main-thread StageTimer "write" over the window's wall, in %."""
+"""write_share.detect: Main-thread StageTimer "write" over the unprofiled stretch's wall, in %."""
 
 from harness.readers import main_share
 

@@ -84,9 +84,20 @@ def test_cell_rehearsal_is_correct(workload):
 def test_traced_rehearsal_reports_host_metrics():
     result = run("detect_l100_pe_gz", trace=1)
     assert result["correct"]
-    assert {"startup_share.detect", "parse_share.detect", "write_share.detect"} <= set(
-        result["metrics"])
+    with open(f"{core.REPO}/BENCHMARK.json") as fh:
+        listed = {m["name"] for m in json.load(fh)["per_layer"]
+                  if m["source"] != "device_trace"
+                  and "detect_l100_pe_gz" in m.get("workloads", ["detect_l100_pe_gz"])}
+    # every metric of the program's spans, and the wall-clock mfu (the
+    # device trace's need a card; the deflate pool splits only payloads
+    # larger than this library's)
+    assert listed - {"deflate_s_per_mread.detect"} <= set(result["metrics"])
     assert result["device"]["window_s"] > 0
+    # each stretch's calls and wall, for the profiler's cost
+    stretches = result["stretches"]
+    assert set(stretches) == {"unprofiled", "profiled"}
+    assert all(p["calls"] >= 1 and p["wall_s"] > 0 for p in stretches.values())
+    assert sum(p["calls"] for p in stretches.values()) == result["attempted"]
 
 
 def swap_first_read(monkeypatch):
