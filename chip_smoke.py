@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # the whole check (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel checks at a small batch,
                                      # then the card tests
+    python3 chip_smoke.py --caduceus # the Caduceus kernels and its detect
+                                     # path alone (the caduceus phase)
     python3 chip_smoke.py --cards    # build + the main path, then at -d 0,1
                                      # (detect, serve, the portable runner
                                      # and --precision exact) and training
@@ -51,6 +53,22 @@ Phases, one JSON line each; any failure exits non-zero:
             ones at theirs); exact's products at the fp32 CUDA-core rate
             beside it (fp32_cuda_core_ms); the resident clusters of exact
             and high
+  caduceus  the Caduceus-Ph kernels (csrc/caduceus_scan.cu, built here on
+            first use) at the published widths and the main path's
+            micro-batch (models.caduceus.micro_rows at T=300: 1,372 reads,
+            2,744 rows with their reverse complements; lengths of the 300
+            bucket, 257-300, and four of 0, 1, 299, 300): cad_conv_kernel,
+            cad_scan_kernel and cad_add_norm_kernel each against its plain
+            version on the same inputs (within bf16's rounding of the
+            output; the add exact), timed (kernel: CUDA events, mean of 5;
+            plain: one call) beside its bound (the larger of its bytes at
+            HBM's rate, its FLOPs at the CUDA cores' and, for the scan, its
+            exp and softplus at the MUFU's); then one detect CLI call on a
+            Caduceus config (2,048 reads of 40-320 bp FASTA at -l 300, five
+            buckets), its launches counted from 0 just before it: the scan
+            and the conv once per layer and micro-batch, the add-norm 17
+            times per 16 scans, and every read in its plain label's file
+            where the margin is above the kernels' gap
   card_tests  the jax-free card tests (tests/test_torch_card_*.py) under
             `python3 -m pytest --noconftest` in a child process: fails
             unless pytest exits 0 and every collected test passed (none
@@ -821,6 +839,215 @@ def phase_timing(params, quick, tc_plain, sass):
 
 
 CARD_TESTS = os.path.join("tests", "test_torch_card_*.py")
+
+
+CAD_T = 300
+
+
+def cad_inputs(params, rng, reads):
+    """A micro-batch as the Caduceus step hands it to the kernels: token
+    rows of the 300 bucket's lengths and their reverse complements ->
+    (ids [2 reads, T], lengths [2 reads], the first layer's residual r)."""
+    import torch
+
+    from ribodetector_tpu_torch.models import caduceus as cad
+
+    lengths = rng.integers(257, CAD_T + 1, reads)
+    lengths[:4] = (0, 1, CAD_T - 1, CAD_T)
+    tok = rng.integers(0, 5, (reads, CAD_T)).astype(np.uint8)
+    tok[np.arange(CAD_T)[None, :] >= lengths[:, None]] = 4
+    ids, lengths2 = cad.strands(torch.from_numpy(tok).cuda(), torch.from_numpy(lengths).cuda())
+    return ids, lengths2, params.embedding[ids]
+
+
+def cad_gate(name, got, want, rel, floor):
+    """Every element of got within rel * |want| + floor of want."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    bad = int((err > rel * want.float().abs() + floor).sum())
+    check(bad == 0, f"caduceus: {name} against its plain version: {bad} elements "
+                    f"outside {rel:g} relative + {floor:g} (max-abs {float(err.max()):.3g})")
+    return float(err.max())
+
+
+def one_call_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def caduceus_kernels(params):
+    """Each kernel against its plain version and timed at the main path's
+    micro-batch -> the kernels line's rows."""
+    import torch
+
+    from ribodetector_tpu_torch.models import caduceus as cad
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    reads = cad.micro_rows(params, CAD_T)
+    ids, lengths, r = cad_inputs(params, np.random.default_rng(17), reads)
+    N, D = r.shape[0], r.shape[2]
+    E = params.w_in.shape[2] // 2
+    P = params.w_x.shape[3]
+    bases = int(lengths.sum())
+    lens32 = lengths.int().contiguous()
+    bf16 = torch.bfloat16
+    # bf16 rounding of a kernel's output: half an ulp (2^-9 relative) each
+    # way, beside the fp32 arithmetic's other order and ex2.approx
+    rel = 2.0 ** -8
+    rows = []
+
+    def row(name, plain_name, kernel_ms, plain_ms, bound_ms, bound_by, max_abs):
+        rows.append({"name": name, "route": "cuda", "source": "ribodetector_tpu_torch/csrc/"
+                     "caduceus_scan.cu", "replaces": None, "plain": plain_name,
+                     "B": N, "T": CAD_T, "bases": bases, "kernel_ms": kernel_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": plain_ms,
+                     "max_abs_err": max_abs})
+
+    # add-norm: r += h and RMSNorm(r) g, bf16 out: reads r and h, writes r and u
+    h = (0.1 * torch.randn(r.shape, device=r.device)).to(bf16)
+    g = params.norm_g[1].contiguous()
+    want_r, want_u = cad.add_norm_plain(r, h, g)
+    r2 = r.clone()
+    got_u = cc.add_norm_cuda(r2, h, g)
+    check(torch.equal(r2, want_r), "caduceus: the add-norm kernel's fp32 add is not exact")
+    err = cad_gate("cad_add_norm_kernel", got_u, want_u, rel, 1e-6)
+    r2 = r.clone()
+    k_ms = cuda_time_ms(lambda: cc.add_norm_cuda(r2, h, g), 5)
+    p_ms = one_call_ms(lambda: cad.add_norm_plain(r, h, g))
+    nbytes = N * CAD_T * D * (4 + 2 + 4 + 2)
+    row("cad_add_norm_kernel", "add_norm_plain", k_ms, p_ms, 1e3 * nbytes / HBM_BYTES_PER_S,
+        f"bytes: {nbytes / 1e9:.3f} GB", err)
+    del r2, want_r, want_u, got_u, h
+
+    u = cc.add_norm_cuda(r.clone(), None, params.norm_g[0])
+    xz = torch.matmul(u, params.w_in[0].to(bf16))
+    del u
+    # conv: reads x (bf16), writes both directions' outputs (bf16)
+    got = cc.conv_cuda(xz, lens32, params.conv_w[0], params.conv_b[0])
+    want = cad.conv_plain(xz, lengths, params.conv_w[0], params.conv_b[0])
+    err = cad_gate("cad_conv_kernel", got, want, rel, 1e-6)
+    del want
+    k_ms = cuda_time_ms(lambda: cc.conv_cuda(xz, lens32, params.conv_w[0], params.conv_b[0]), 5)
+    p_ms = one_call_ms(lambda: cad.conv_plain(xz, lengths, params.conv_w[0], params.conv_b[0]))
+    nbytes = 3 * N * CAD_T * E * 2
+    row("cad_conv_kernel", "conv_plain", k_ms, p_ms, 1e3 * nbytes / HBM_BYTES_PER_S,
+        f"bytes: {nbytes / 1e9:.3f} GB", err)
+
+    # scan: per base and direction E*S exp and E softplus (MUFU), 159,744
+    # FLOPs for both directions (conv, dt, scan, D, gate), and xz, dbc in
+    # and the gated output out
+    dbc = torch.bmm(got.view(2, N * CAD_T, E), params.w_x[0].to(bf16)).view(2, N, CAD_T, P)
+    xc = got.float()
+    del got
+    a2 = (-torch.exp(params.a_log[0]) * cc.LOG2E).contiguous()
+    args = (xz, dbc, lens32, params.conv_w[0], params.conv_b[0], params.w_dt[0],
+            params.b_dt[0], a2, params.d[0])
+    got = cc.scan_cuda(*args)
+    t0 = time.perf_counter()
+    want = cad.scan_plain(xz, dbc, cad.conv_plain(xz, lengths, params.conv_w[0],
+                                                  params.conv_b[0]),
+                          lengths, params.w_dt[0], params.b_dt[0], params.a_log[0], params.d[0])
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t0)
+    err = cad_gate("cad_scan_kernel", got, want, rel, 1e-5 * float(want.abs().max()))
+    del want, xc
+    k_ms = cuda_time_ms(lambda: cc.scan_cuda(*args), 5)
+    S = params.a_log.shape[3]
+    sfu = 2 * (E * S + E) * bases / MUFU_PER_S
+    flops = 159_744 * bases / FP32_FLOPS
+    nbytes = N * CAD_T * (2 * E * 2 + 2 * P * 2 + E * 2)
+    bound = max(sfu, flops, nbytes / HBM_BYTES_PER_S)
+    row("cad_scan_kernel", "scan_plain (with conv_plain)", k_ms, p_ms, 1e3 * bound,
+        "MUFU: exp and softplus" if bound == sfu else "other", err)
+    return rows
+
+
+def caduceus_detect(params, tmp, n=2048):
+    """One detect CLI call on a Caduceus config, launches counted from 0
+    just before it, its partition against the plain forward's labels."""
+    import torch
+
+    from ribodetector_tpu_torch.cli import main as cli_main
+    from ribodetector_tpu_torch.encode import encode_batch
+    from ribodetector_tpu_torch.models import caduceus as cad
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    rng = np.random.default_rng(18)
+    reads = ["".join(rng.choice(list("ACGTN"), int(k), p=[0.24, 0.24, 0.24, 0.24, 0.04]))
+             for k in rng.integers(40, 321, n)]
+    src = os.path.join(tmp, "cad_in.fa")
+    with open(src, "w") as fh:
+        fh.writelines(f">r{i}\n{s}\n" for i, s in enumerate(reads))
+    npz = os.path.join(tmp, "cad.npz")
+    cad.save_params(npz, params)
+    cfg = os.path.join(tmp, "cad_cfg.json")
+    with open(cfg, "w") as fh:
+        json.dump({"name": "cad", "arch": {"type": "CaduceusParams", "args": cad.dims(params)},
+                   "state_file": {"mcc": npz, "recall": npz},
+                   "runtime": {"semantics": "packed", "compute_dtype": "bfloat16",
+                               "kernel": "auto"}}, fh)
+    out, rr = os.path.join(tmp, "cad_o.fa"), os.path.join(tmp, "cad_r.fa")
+    cc.reset_launches()
+    t0 = time.perf_counter()
+    cli_main(["-c", cfg, "-l", str(CAD_T), "-i", src, "-o", out, "-r", rr,
+              "--buckets", "64,128,192,256,300"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: cc.launches(k) for k in ("conv", "scan", "norm")}
+    n_layer = params.w_in.shape[0]
+    check(launches["scan"] > 0 and launches["scan"] % n_layer == 0
+          and launches["conv"] == launches["scan"]
+          and launches["norm"] == (n_layer + 1) * launches["scan"] // n_layer,
+          f"caduceus: the detect call launched {launches}")
+    tokens, lengths = encode_batch(reads, CAD_T)
+    with torch.no_grad():
+        want = torch.cat([cad.caduceus_logits(params, torch.from_numpy(tokens[a: a + 512]).cuda(),
+                                              torch.from_numpy(lengths[a: a + 512]).cuda(),
+                                              torch.bfloat16)
+                          for a in range(0, len(reads), 512)]).cpu().numpy()
+    label = want.argmax(1)
+    margin = np.abs(want[:, 1] - want[:, 0])
+    got = {}
+    for path, lab in ((out, 0), (rr, 1)):
+        with open(path) as fh:
+            ids = [int(line[2:]) for line in fh if line.startswith(">")]
+        check(ids == sorted(ids), f"caduceus: {path} out of order")
+        got.update({i: lab for i in ids})
+    check(sorted(got) == list(range(len(reads))), "caduceus: reads lost or doubled")
+    sure = np.flatnonzero(margin > 0.02 * np.abs(want).max())
+    wrong = sum(got[i] != label[i] for i in sure)
+    check(wrong == 0, f"caduceus: {wrong} reads in the other file at a margin above the gap")
+    emit("caduceus", run="detect", reads=len(reads), wall_s=wall, launches=launches,
+         checked=len(sure))
+    return launches
+
+
+def phase_caduceus(tmp, n=2048):
+    """The Caduceus kernels and its detect call -> the kernels line's rows,
+    each with its launches in the detect call."""
+    import torch
+
+    from ribodetector_tpu_torch.models import caduceus as cad
+    from ribodetector_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    build.caduceus_library()
+    emit("caduceus", build_s=time.perf_counter() - t0, key=build.caduceus_library_key())
+    params = cad.init_params(torch.Generator().manual_seed(3), device="cuda")
+    rows = caduceus_kernels(params)
+    torch.cuda.empty_cache()
+    launches = caduceus_detect(params, tmp, n)
+    for r in rows:
+        r["launches"] = launches[{"cad_conv_kernel": "conv", "cad_scan_kernel": "scan",
+                                  "cad_add_norm_kernel": "norm"}[r["name"]]]
+    emit("caduceus", kernels=rows)
+    return rows
 
 
 def phase_card_tests():
@@ -2515,6 +2742,13 @@ def main(argv):
     import ribodetector_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     smi = phase_env()
+    if "--caduceus" in argv:
+        with tempfile.TemporaryDirectory() as tmp:
+            rows = phase_caduceus(tmp)
+        print(json.dumps({"kernels": rows}), flush=True)
+        print(smi, flush=True)
+        emit("caduceus_only", done=True)
+        return
     sass = phase_build()
     from ribodetector_tpu_torch.models import load_params
 
@@ -2538,6 +2772,8 @@ def main(argv):
         return
     max_err, tc_plain = timed("kernels", phase_kernels, params, quick)
     times = timed("timing", phase_timing, params, quick, tc_plain, sass)
+    with tempfile.TemporaryDirectory() as tmp:
+        cad_rows = timed("caduceus", phase_caduceus, tmp)
     timed("card_tests", phase_card_tests)
     if quick:
         emit("walls", **walls)
@@ -2572,7 +2808,7 @@ def main(argv):
             **times[mode],
         }
         for mode in MODES
-    ]
+    ] + cad_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

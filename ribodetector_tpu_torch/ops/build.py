@@ -1,8 +1,11 @@
 """Build-at-first-use for the port's native code.
 
-Two shared libraries with a plain C interface, loaded with ctypes:
+Shared libraries with a plain C interface, loaded with ctypes:
 
-- ``csrc/*.cu``: the CUDA kernels, compiled with nvcc for sm_90a (Hopper);
+- ``csrc/bilstm.cu``: the BiLSTM's CUDA kernels, compiled with nvcc for
+  sm_90a (Hopper);
+- ``csrc/caduceus_scan.cu``: the Caduceus mixer's kernels, built and loaded
+  only where a Caduceus runs on the card (a BiLSTM run never builds it);
 - ``native/fastx.cpp``: the FASTQ/FASTA parser, compiled with g++.
 
 Each build lands in ``_build/`` (ignored by git) under a name keyed by a
@@ -24,6 +27,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 FASTX_SRC = os.path.join(PKG_DIR, "native", "fastx.cpp")
 KERNEL_SRC = os.path.join(CSRC_DIR, "bilstm.cu")
+CADUCEUS_SRC = os.path.join(CSRC_DIR, "caduceus_scan.cu")
 
 # no --use_fast_math: the exact kernel relies on IEEE expf/tanhf
 NVCC_FLAGS = [
@@ -34,6 +38,7 @@ GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _kernels = None
+_caduceus = None
 
 
 def nvcc_path():
@@ -136,3 +141,31 @@ def kernel_library():
             lib.rd_cuda_error_string.argtypes = [i32]
             _kernels = lib
         return _kernels
+
+
+def caduceus_library_key():
+    """build_key of the Caduceus kernel library (needs no nvcc)."""
+    return build_key(CADUCEUS_SRC, "nvcc", NVCC_FLAGS)
+
+
+def caduceus_library():
+    """The loaded Caduceus kernel library (built on first use), with
+    argtypes: every array a device pointer, then the sizes and the
+    stream."""
+    global _caduceus
+    with _lock:
+        if _caduceus is None:
+            path, _ = build_shared(CADUCEUS_SRC, nvcc_path(), NVCC_FLAGS, "caduceus_scan")
+            lib = ctypes.CDLL(path)
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.rd_cad_conv.restype = i32
+            lib.rd_cad_conv.argtypes = [vp] * 5 + [i32] * 3 + [vp]
+            lib.rd_cad_scan.restype = i32
+            lib.rd_cad_scan.argtypes = [vp] * 11 + [i32] * 5 + [vp]
+            lib.rd_cad_add_norm.restype = i32
+            lib.rd_cad_add_norm.argtypes = [vp] * 4 + [ctypes.c_longlong, i32, i32,
+                                                       ctypes.c_float, vp]
+            lib.rd_cad_error_string.restype = ctypes.c_char_p
+            lib.rd_cad_error_string.argtypes = [i32]
+            _caduceus = lib
+        return _caduceus

@@ -1,4 +1,4 @@
-"""Device-side glue around the BiLSTM classify step.
+"""Device-side glue around the classify step.
 
 Counterpart of ``ribodetector_tpu/ops/dispatch.py``: the unpacking of the
 native parser's packed token rows on the device, and the kernel choice.
@@ -13,6 +13,7 @@ the device or the width raises.
 
 import torch
 
+from ribodetector_tpu_torch.models import is_caduceus
 from ribodetector_tpu_torch.models.bilstm import HIDDEN, bilstm_logits
 
 KERNELS = ("auto", "cuda", "plain")
@@ -104,6 +105,10 @@ def classify_logits(params, tokens, lengths=None, *, semantics="dense",
                     bwd_init=None):
     """[B, T] tokens -> [B, 2] logits with the kernel the device runs.
 
+    The one classify call of both models: CaduceusParams go to
+    ops/caduceus_cuda.caduceus_classify (lengths required; semantics,
+    mode and bwd_init do not apply), BiLSTMParams as below.
+
     On the card at hidden 128, mode ("exact", "high" or "fast") and
     compute_dtype select the CUDA kernel (kernel_mode). On the CPU, and on
     the card at another width, the plain recurrence runs in compute_dtype
@@ -111,6 +116,11 @@ def classify_logits(params, tokens, lengths=None, *, semantics="dense",
     precision mode. bwd_init is the length-bucketing
     backward-carry init (models/bilstm.py zero_prefix_state).
     """
+    if is_caduceus(params):
+        from ribodetector_tpu_torch.ops.caduceus_cuda import caduceus_classify
+
+        return caduceus_classify(params, tokens, lengths, kernel=kernel,
+                                 compute_dtype=compute_dtype)
     if resolve_kernel(kernel, tokens.device, params.w_hh_f.shape[0]) == "cuda":
         from ribodetector_tpu_torch.ops.lstm_cuda import bilstm_logits_cuda
 

@@ -1518,8 +1518,13 @@ class NativeRunner:
                 from collections import Counter, deque
 
                 self._pinned = (Counter(), Counter())
-            with timer.stage("steps"):
+            if p.arch == "CaduceusParams":
+                # no card work to prepare: the Caduceus's steps only bind
+                # their widths (no zero_prefix_state), so no "steps" stage
                 infers, stagers = self._bucket_infers(buckets)
+            else:
+                with timer.stage("steps"):
+                    infers, stagers = self._bucket_infers(buckets)
             partial = [None] * len(stagers)
             pending = self._pending = deque()
             self._pending_rows = 0
@@ -1733,9 +1738,15 @@ def resolved_kernel(p):
     "cuda" with the CUDA kernel that runs the precision mode under the
     compute dtype and the build key of the kernel library (a rebuilt
     tensor-core kernel sums in another order, so its logits differ in the
-    last bits), or "plain" (the CPU recurrence)."""
+    last bits; a Caduceus: mode "caduceus" and its own library's key), or
+    "plain" (the CPU recurrence)."""
     if p.kernel != "cuda":
         return {"kernel": p.kernel, "kernel_mode": None, "kernel_build": None}
+    if getattr(p, "arch", "BiLSTMParams") == "CaduceusParams":
+        from ribodetector_tpu_torch.ops.build import caduceus_library_key
+
+        return {"kernel": "cuda", "kernel_mode": "caduceus",
+                "kernel_build": caduceus_library_key()}
     import torch
 
     from ribodetector_tpu_torch.ops.build import kernel_library_key

@@ -70,6 +70,8 @@ class Predictor:
     (tests hold the split against one replica with it; no CLI flag sets
     it)."""
 
+    arch = "BiLSTMParams"  # the config's arch.type, set by load_model
+
     def __init__(self, config, args, device="cuda", replicas=1):
         self.config = config
         self.args = args
@@ -162,9 +164,11 @@ class Predictor:
     def load_model(self):
         """Select the device, load weights, run the startup parity probe and
         build the portable runner's classify step."""
+        import threading
+
         import torch
 
-        from ribodetector_tpu_torch.models import load_params
+        from ribodetector_tpu_torch.models import check_arch, load_params
         from ribodetector_tpu_torch.ops.dispatch import (
             PRECISIONS,
             kernel_mode,
@@ -172,15 +176,26 @@ class Predictor:
         )
 
         self.get_state_file()
+        # the config's arch.type selects the model; the npz must hold it
+        self.arch = check_arch(self.config.get("arch", {}).get("type", "BiLSTMParams"))
         with self.timer.stage("load.devices"):
             self.devices = self._select_devices()
         self.device = self.devices[0]
         with self.timer.stage("load.weights"):
-            # the weights on every card (554 KB each): each card's classify
-            # steps read their own copy
-            self._card_params = [load_params(self.state_file, d) for d in self.devices]
+            # the weights on every card (554 KB each for the BiLSTM, 31 MB
+            # for the Caduceus): each card's classify steps read their own
+            # copy
+            self._card_params = [load_params(self.state_file, d, arch=self.arch)
+                                 for d in self.devices]
         self.params = self._card_params[0]
+        # one Caduceus micro-batch's activations at a time on each card
+        self._forward_locks = [threading.Lock() for _ in self.devices]
         runtime_cfg = self.config.get("runtime", {})
+        if self.arch == "CaduceusParams":
+            self._load_caduceus(runtime_cfg)
+            with self.timer.stage("load.steps"):
+                self._infer = self._build_infers()
+            return
         self.semantics = getattr(self.args, "semantics", None) or runtime_cfg.get(
             "semantics", "dense"
         )
@@ -224,6 +239,57 @@ class Predictor:
         )
         with self.timer.stage("load.steps"):
             self._infer = self._build_infers()
+
+    def _load_caduceus(self, runtime_cfg):
+        """The Caduceus's settings: packed semantics (each read over its own
+        bases), the configuration's precision (compute_dtype bfloat16 on the
+        card; float32 or bfloat16 on the CPU), its kernels on the card and
+        the plain forward on the CPU. It has no precision modes and no
+        parity probe: an explicit --precision other than the default, dense
+        semantics, and widths that disagree with the config's arch.args are
+        refused."""
+        from ribodetector_tpu_torch.models.caduceus import dims
+
+        have = dims(self.params)
+        want = self.config.get("arch", {}).get("args", {})
+        wrong = {k: (v, have[k]) for k, v in want.items() if k in have and v != have[k]}
+        if wrong:
+            raise ValueError(f"the config's arch.args disagree with {self.state_file} "
+                             f"(config, weights): {wrong}")
+        self.semantics = getattr(self.args, "semantics", None) or runtime_cfg.get(
+            "semantics", "packed")
+        if self.semantics != "packed":
+            raise ValueError("a Caduceus runs packed semantics (each read over its "
+                             f"own bases), not {self.semantics!r}")
+        precision = getattr(self.args, "precision", None) or runtime_cfg.get("precision")
+        if precision not in (None, "high"):
+            raise ValueError(f"--precision {precision} applies to the BiLSTM's kernels; "
+                             "a Caduceus computes in its configuration's precision")
+        self.precision_mode = "caduceus"
+        self.compute_dtype = runtime_cfg.get("compute_dtype", "float32")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"runtime.compute_dtype must be one of {COMPUTE_DTYPES}, "
+                             f"got {self.compute_dtype!r}")
+        on_card = self.device.type == "cuda"
+        kernel = runtime_cfg.get("kernel", "auto")
+        if kernel not in ("auto", "cuda", "plain") or kernel == ("plain" if on_card else "cuda"):
+            raise ValueError(f"kernel {kernel!r}: a Caduceus runs its kernels on the "
+                             "card and the plain forward on the CPU")
+        self.kernel = "cuda" if on_card else "plain"
+        if on_card:
+            from ribodetector_tpu_torch.ops.caduceus_cuda import check_widths
+
+            check_widths(self.params)
+            if self.compute_dtype != "bfloat16":
+                raise ValueError("a Caduceus on the card computes in its configuration's "
+                                 "precision: runtime.compute_dtype must be bfloat16")
+        c = dims(self.params)
+        self.logger.info(
+            "Caduceus-Ph model (d_model {}, {} layers) using {} ({} device{}) for "
+            "read length {}{}{}{} loaded".format(
+                c["d_model"], c["n_layer"], self.device.type, len(self.devices),
+                "s" if len(self.devices) != 1 else "", colors.BOLD, colors.OKCYAN,
+                self.len, colors.ENDC))
 
     def _probe_marker(self):
         """Pass-marker path: the verdict is a property of (torch version,
@@ -411,12 +477,70 @@ class Predictor:
                     )
                 )
 
+        if self.arch == "CaduceusParams":
+            classify = self._caduceus_step(classify_logits, params, packed_max_len or self.len,
+                                           card, post)
+
         if packed_max_len is None:
             return classify
         max_len = packed_max_len
         if semantics == "packed":
             return lambda ptokens, lengths: classify(unpack(ptokens, max_len), lengths)
         return lambda ptokens, lengths=None: classify(unpack(ptokens, max_len), None)
+
+    def _caduceus_step(self, classify_logits, params, T, card, post):
+        """The Caduceus's classify step over a device call of width T: the
+        rows that hold a read (the rest, a flush batch's padding, get zero
+        logits) in micro-batches of models.caduceus.micro_rows(params, T)
+        reads (fixed by the widths and T: one micro-batch's activations,
+        both strands, fit its 8 GiB), each one classify_logits call under a
+        "cad.forward" span; the card's lock holds while the micro-batches
+        are launched, so that the dispatcher threads' calls never hold more
+        than one micro-batch's activations on a card at once. The logits
+        are put back in row order before `post`. With the timer on it
+        counts cad.micro_batches, cad.padded_tokens (rows x T x 2 strands,
+        what the kernels compute) and cad.tokens (the reads' own bases, x 2
+        strands), the last read once the call's work is done."""
+        import torch
+
+        from ribodetector_tpu_torch.models.caduceus import micro_rows
+        from ribodetector_tpu_torch.runtime.profiling import span
+
+        rows = micro_rows(params, T)
+        lock = self._forward_locks[card]
+        timer = self.timer
+        kernel = self.kernel
+        compute_dtype = getattr(torch, self.compute_dtype)
+
+        def classify(tokens, lengths):
+            B = tokens.shape[0]
+            # a call's rows of no bases (a flush batch's padding rows) have
+            # zero logits by definition: only the reads' rows are computed
+            # (one wait for this call's lengths, before the card's lock)
+            live = torch.nonzero(lengths > 0).squeeze(1)
+            n = live.numel()
+            if n < B:
+                tokens, lengths = tokens.index_select(0, live), lengths.index_select(0, live)
+            with torch.no_grad():
+                with lock:
+                    parts = []
+                    for a in range(0, n, rows) or [0]:
+                        with span("cad.forward"):
+                            parts.append(classify_logits(
+                                params, tokens[a: a + rows], lengths[a: a + rows],
+                                semantics="packed", kernel=kernel,
+                                compute_dtype=compute_dtype))
+                logits = parts[0] if len(parts) == 1 else torch.cat(parts)
+                if n < B:
+                    logits = logits.new_zeros((B, logits.shape[1])).index_copy_(0, live, logits)
+                out = post(logits)
+            if timer.enabled:
+                timer.count("cad.micro_batches", len(parts))
+                timer.count("cad.padded_tokens", 2 * n * T)
+                timer.count("cad.tokens", 2 * int(lengths.clamp(0, T).sum()))
+            return out
+
+        return classify
 
     # ------------------------------------------------------------ encode
 

@@ -106,6 +106,12 @@ def _train(argv, device, grid=None):
     a grid, as one rank of a multi-device run (rank 0 prints)."""
     args, monitor = _parse(argv)
     say = print if grid is None or grid.rank == 0 else (lambda *a, **k: None)
+    if args.init:
+        from ribodetector_tpu_torch.models import arch_of
+
+        if arch_of(args.init) != "BiLSTMParams":
+            raise SystemExit(f"--init {args.init} holds {arch_of(args.init)} weights: the "
+                             "trainer trains the BiLSTM only (a Caduceus is not trained)")
 
     import torch
 

@@ -612,6 +612,9 @@ def fit(
     models.convert.
     """
     cfg = cfg or TrainConfig()
+    if not isinstance(params, BiLSTMParams):
+        raise ValueError(f"fit trains BiLSTMParams only (got {type(params).__name__}: "
+                         "a Caduceus is not trained)")
     if int(batch_size) < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     if monitor not in VALID_MONITORS:
