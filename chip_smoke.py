@@ -63,7 +63,13 @@ Phases, one JSON line each; any failure exits non-zero:
             output; the add exact), timed (kernel: CUDA events, mean of 5;
             plain: one call) beside its bound (the larger of its bytes at
             HBM's rate, its FLOPs at the CUDA cores' and, for the scan, its
-            exp and softplus at the MUFU's); then one detect CLI call on a
+            exp and softplus at the MUFU's); the scan kernel again at each
+            bucket width of the detect cell (64, 128, 192, 256, 300: a
+            micro-batch of the bucket's lengths each), with its identity
+            steps' share; the build's ptxas lines, the scan kernel's
+            registers, spilled bytes, shared bytes a block, blocks an SM,
+            step group and chunk (scan_info), and its SASS's MUFU
+            instructions by kind; then one detect CLI call on a
             Caduceus config (2,048 reads of 40-320 bp FASTA at -l 300, five
             buckets), its launches counted from 0 just before it: the scan
             and the conv once per layer and micro-batch, the add-norm 17
@@ -188,6 +194,7 @@ The last line is {"ok": true, "device": {...}}. The script imports nothing
 of the JAX package.
 """
 
+import collections
 import copy
 import gzip
 import io
@@ -314,9 +321,8 @@ def opcode(text):
     return parts[1] if parts[0].startswith("@") and len(parts) > 1 else parts[0]
 
 
-def read_sass(lib_path):
-    """({mode or "cell:" + mode: [(address, instruction)]}, None) from
-    `cuobjdump -sass` of the kernel library, or (None, why not)."""
+def cuobjdump_sass(lib_path):
+    """(`cuobjdump -sass` of a library, None), or (None, why not)."""
     from ribodetector_tpu_torch.ops import build
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -326,8 +332,17 @@ def read_sass(lib_path):
     proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
     if proc.returncode != 0:
         return None, f"cuobjdump failed: {proc.stderr.strip()[-300:]}"
+    return proc.stdout, None
+
+
+def read_sass(lib_path):
+    """({mode or "cell:" + mode: [(address, instruction)]}, None) from
+    `cuobjdump -sass` of the kernel library, or (None, why not)."""
+    sass, why = cuobjdump_sass(lib_path)
+    if sass is None:
+        return None, why
     funcs, cur = {}, None
-    for line in proc.stdout.splitlines():
+    for line in sass.splitlines():
         m = SASS_FUNCTION.search(line)
         if m:
             k = SASS_KERNEL.search(m.group(1))
@@ -844,20 +859,89 @@ CARD_TESTS = os.path.join("tests", "test_torch_card_*.py")
 CAD_T = 300
 
 
-def cad_inputs(params, rng, reads):
+# the detect cell's buckets (benchmark/configs/cad_ph_d256_n16_l300.json)
+# and the lengths each holds of lib_fa_long_cad's 40-300 bp reads
+CAD_BUCKETS = ((64, 40), (128, 65), (192, 129), (256, 193), (300, 257))
+
+
+def cad_inputs(params, rng, reads, T=CAD_T, shortest=257):
     """A micro-batch as the Caduceus step hands it to the kernels: token
-    rows of the 300 bucket's lengths and their reverse complements ->
-    (ids [2 reads, T], lengths [2 reads], the first layer's residual r)."""
+    rows of a bucket's lengths (shortest..T) and their reverse complements
+    -> (ids [2 reads, T], lengths [2 reads], the first layer's residual r)."""
     import torch
 
     from ribodetector_tpu_torch.models import caduceus as cad
 
-    lengths = rng.integers(257, CAD_T + 1, reads)
-    lengths[:4] = (0, 1, CAD_T - 1, CAD_T)
-    tok = rng.integers(0, 5, (reads, CAD_T)).astype(np.uint8)
-    tok[np.arange(CAD_T)[None, :] >= lengths[:, None]] = 4
+    lengths = rng.integers(shortest, T + 1, reads)
+    lengths[:4] = (0, 1, T - 1, T)
+    tok = rng.integers(0, 5, (reads, T)).astype(np.uint8)
+    tok[np.arange(T)[None, :] >= lengths[:, None]] = 4
     ids, lengths2 = cad.strands(torch.from_numpy(tok).cuda(), torch.from_numpy(lengths).cuda())
     return ids, lengths2, params.embedding[ids]
+
+
+def identity_share(lengths, group):
+    """The scan kernel's identity steps (a row's last group of `group`
+    steps run past its end) over all the steps it runs, both directions."""
+    L = np.asarray(lengths, dtype=np.int64)
+    run = -(-L // group) * group
+    return float((run - L).sum() / max(int(run.sum()), 1))
+
+
+def cad_in_proj(params, r, lens32):
+    """The first layer up to the conv from a micro-batch's residual r:
+    (xz, the conv kernel's output xc)."""
+    import torch
+
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    u = cc.add_norm_cuda(r.clone(), None, params.norm_g[0])
+    xz = torch.matmul(u, params.w_in[0].to(torch.bfloat16))
+    del u
+    return xz, cc.conv_cuda(xz, lens32, params.conv_w[0], params.conv_b[0])
+
+
+def cad_scan_args(params, xz, xc, lens32):
+    """The first layer's scan_cuda arguments, as caduceus_logits_cuda
+    hands them over, from its in-projection xz and conv output xc."""
+    import torch
+
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    N, T, E = xz.shape[0], xz.shape[1], xc.shape[-1]
+    dbc = torch.bmm(xc.view(2, N * T, E), params.w_x[0].to(torch.bfloat16)).view(2, N, T, -1)
+    a2 = (-torch.exp(params.a_log[0]) * cc.LOG2E).contiguous()
+    return (xz, dbc, lens32, params.conv_w[0], params.conv_b[0], params.w_dt[0],
+            params.b_dt[0], a2, params.d[0])
+
+
+def cad_scan_bound_s(params, bases):
+    """The scan's bound for `bases` bases (both directions): its exps and
+    softplus at the MUFU's rate, above its FLOPs and bytes (csrc note)."""
+    E = params.w_in.shape[2] // 2
+    S = params.a_log.shape[3]
+    return 2 * (E * S + E) * bases / MUFU_PER_S
+
+
+def cad_scan_sass(lib_path):
+    """From `cuobjdump -sass`: cad_scan_kernel's static instruction count
+    and its MUFU instructions by kind ({} without cuobjdump). Its step
+    groups hold nearly all the MUFU ones, so those over the groups' steps
+    are about a channel-step's."""
+    sass, _ = cuobjdump_sass(lib_path)
+    counts, cur = collections.Counter(), False
+    for line in (sass or "").splitlines():
+        m = SASS_FUNCTION.search(line)
+        if m:
+            cur = "cad_scan_kernel" in m.group(1)
+            continue
+        m = SASS_INSN.search(line)
+        if m and cur:
+            op = opcode(m.group(2))
+            counts["instructions"] += 1
+            if op.startswith("MUFU"):
+                counts[op] += 1
+    return dict(counts)
 
 
 def cad_gate(name, got, want, rel, floor):
@@ -925,11 +1009,8 @@ def caduceus_kernels(params):
         f"bytes: {nbytes / 1e9:.3f} GB", err)
     del r2, want_r, want_u, got_u, h
 
-    u = cc.add_norm_cuda(r.clone(), None, params.norm_g[0])
-    xz = torch.matmul(u, params.w_in[0].to(bf16))
-    del u
     # conv: reads x (bf16), writes both directions' outputs (bf16)
-    got = cc.conv_cuda(xz, lens32, params.conv_w[0], params.conv_b[0])
+    xz, got = cad_in_proj(params, r, lens32)
     want = cad.conv_plain(xz, lengths, params.conv_w[0], params.conv_b[0])
     err = cad_gate("cad_conv_kernel", got, want, rel, 1e-6)
     del want
@@ -942,12 +1023,9 @@ def caduceus_kernels(params):
     # scan: per base and direction E*S exp and E softplus (MUFU), 159,744
     # FLOPs for both directions (conv, dt, scan, D, gate), and xz, dbc in
     # and the gated output out
-    dbc = torch.bmm(got.view(2, N * CAD_T, E), params.w_x[0].to(bf16)).view(2, N, CAD_T, P)
-    xc = got.float()
+    args = cad_scan_args(params, xz, got, lens32)
+    dbc = args[1]
     del got
-    a2 = (-torch.exp(params.a_log[0]) * cc.LOG2E).contiguous()
-    args = (xz, dbc, lens32, params.conv_w[0], params.conv_b[0], params.w_dt[0],
-            params.b_dt[0], a2, params.d[0])
     got = cc.scan_cuda(*args)
     t0 = time.perf_counter()
     want = cad.scan_plain(xz, dbc, cad.conv_plain(xz, lengths, params.conv_w[0],
@@ -956,15 +1034,58 @@ def caduceus_kernels(params):
     torch.cuda.synchronize()
     p_ms = 1e3 * (time.perf_counter() - t0)
     err = cad_gate("cad_scan_kernel", got, want, rel, 1e-5 * float(want.abs().max()))
-    del want, xc
+    del want, got
     k_ms = cuda_time_ms(lambda: cc.scan_cuda(*args), 5)
-    S = params.a_log.shape[3]
-    sfu = 2 * (E * S + E) * bases / MUFU_PER_S
     flops = 159_744 * bases / FP32_FLOPS
     nbytes = N * CAD_T * (2 * E * 2 + 2 * P * 2 + E * 2)
+    sfu = cad_scan_bound_s(params, bases)
     bound = max(sfu, flops, nbytes / HBM_BYTES_PER_S)
     row("cad_scan_kernel", "scan_plain (with conv_plain)", k_ms, p_ms, 1e3 * bound,
         "MUFU: exp and softplus" if bound == sfu else "other", err)
+    info = cc.scan_info()
+    rows[-1].update(info, identity_share=identity_share(lengths.cpu(), info["group"]))
+    del args, xz, dbc
+    torch.cuda.empty_cache()
+    rows.extend(caduceus_scan_buckets(params, rel, info["group"]))
+    return rows
+
+
+def caduceus_scan_buckets(params, rel, group):
+    """The scan kernel at each bucket width of the detect cell, a
+    micro-batch of that width (models.caduceus.micro_rows) of its bucket's
+    lengths, against its plain version and timed -> rows."""
+    import torch
+
+    from ribodetector_tpu_torch.models import caduceus as cad
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    rows = []
+    for T, shortest in CAD_BUCKETS:
+        ids, lengths, r = cad_inputs(params, np.random.default_rng(19 + T),
+                                     cad.micro_rows(params, T), T, shortest)
+        lens32 = lengths.int().contiguous()
+        xz, xc = cad_in_proj(params, r, lens32)
+        args = cad_scan_args(params, xz, xc, lens32)
+        dbc = args[1]
+        del r, xc
+        got = cc.scan_cuda(*args)
+        want = cad.scan_plain(xz, dbc, cad.conv_plain(xz, lengths, params.conv_w[0],
+                                                      params.conv_b[0]),
+                              lengths, params.w_dt[0], params.b_dt[0], params.a_log[0],
+                              params.d[0])
+        err = cad_gate(f"cad_scan_kernel at T {T}", got, want, rel,
+                       1e-5 * float(want.abs().max()))
+        del want, got
+        k_ms = cuda_time_ms(lambda: cc.scan_cuda(*args), 5)
+        bases = int(lengths.sum())
+        bound_ms = 1e3 * cad_scan_bound_s(params, bases)
+        rows.append({"name": "cad_scan_kernel", "bucket": T, "lengths": [shortest, T],
+                     "B": ids.shape[0], "T": T, "bases": bases, "kernel_ms": k_ms,
+                     "bound_ms": bound_ms, "bound_by": "MUFU: exp and softplus",
+                     "share": bound_ms / k_ms, "max_abs_err": err,
+                     "identity_share": identity_share(lengths.cpu(), group)})
+        del args, xz, dbc, ids, lengths
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1036,9 +1157,16 @@ def phase_caduceus(tmp, n=2048):
     from ribodetector_tpu_torch.models import caduceus as cad
     from ribodetector_tpu_torch.ops import build
 
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
     t0 = time.perf_counter()
     build.caduceus_library()
-    emit("caduceus", build_s=time.perf_counter() - t0, key=build.caduceus_library_key())
+    path, log = build.build_shared(build.CADUCEUS_SRC, build.nvcc_path(), build.NVCC_FLAGS,
+                                   "caduceus_scan")
+    ptxas = [l.strip() for l in log.splitlines()
+             if "registers" in l or "spill" in l or "Compiling entry" in l]
+    emit("caduceus", build_s=time.perf_counter() - t0, key=build.caduceus_library_key(),
+         ptxas=ptxas, scan_info=cc.scan_info(), scan_sass=cad_scan_sass(path))
     params = cad.init_params(torch.Generator().manual_seed(3), device="cuda")
     rows = caduceus_kernels(params)
     torch.cuda.empty_cache()

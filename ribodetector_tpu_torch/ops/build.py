@@ -162,6 +162,10 @@ def caduceus_library():
             lib.rd_cad_conv.argtypes = [vp] * 5 + [i32] * 3 + [vp]
             lib.rd_cad_scan.restype = i32
             lib.rd_cad_scan.argtypes = [vp] * 11 + [i32] * 5 + [vp]
+            lib.rd_cad_scan_check.restype = i32
+            lib.rd_cad_scan_check.argtypes = [vp, vp]
+            lib.rd_cad_scan_info.restype = i32
+            lib.rd_cad_scan_info.argtypes = [ctypes.POINTER(i32)]
             lib.rd_cad_add_norm.restype = i32
             lib.rd_cad_add_norm.argtypes = [vp] * 4 + [ctypes.c_longlong, i32, i32,
                                                        ctypes.c_float, vp]

@@ -141,6 +141,39 @@ def scan_cuda(xz, dbc, lengths, conv_w, conv_b, w_dt, b_dt, a2, d):
     return out
 
 
+SCAN_INFO = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "group", "chunk")
+
+
+def scan_info():
+    """The scan kernel as built (needs the card): registers and local
+    (spilled) bytes a thread, static shared bytes a block, resident blocks
+    an SM, the step group U (a row's last group runs up to U - 1 identity
+    steps) and the staged chunk TC, keyed by SCAN_INFO."""
+    from ribodetector_tpu_torch.ops.build import caduceus_library
+
+    lib = caduceus_library()
+    info = (ctypes.c_int * len(SCAN_INFO))()
+    err = lib.rd_cad_scan_info(info)
+    if err != 0:
+        raise RuntimeError(f"caduceus scan info: {lib.rd_cad_error_string(err).decode()}")
+    return dict(zip(SCAN_INFO, info))
+
+
+def scan_arith_check():
+    """Over every float32 input, how many give other bits from the scan
+    kernel's branch-free softplus and SiLU than from the plain
+    softplus(v) = v > 20 ? v : log1pf(__expf(v)) and SiLU the conv kernel
+    computes: (softplus, silu) counts, both 0 when the scan's are the
+    same functions."""
+    from ribodetector_tpu_torch.ops.build import caduceus_library
+
+    lib = caduceus_library()
+    count = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(count.device).cuda_stream)
+    _check(lib, lib.rd_cad_scan_check(_ptr(count), stream), "scan check")
+    return tuple(count.tolist())
+
+
 def add_norm_cuda(r, h, g, out_dtype=torch.bfloat16):
     """r [N, T, D] fp32 (r += h in place where h [N, T, D] bf16 is given),
     g [D] fp32 (CUDA, contiguous) -> RMSNorm(r) * g as out_dtype (bf16 or

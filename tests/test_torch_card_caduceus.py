@@ -55,24 +55,82 @@ def test_conv_kernel_against_plain(params):
     assert torch.all((got - want).abs() <= BF16_REL * want.abs() + 1e-6)
 
 
-def test_scan_kernel_against_plain(params):
+def scan_args(params, lengths, rng):
+    """scan_cuda's arguments for rows of these lengths at width T (the
+    first layer's, from random tokens), and the conv's plain output."""
     from ribodetector_tpu_torch.ops import caduceus_cuda as cc
 
-    rng = np.random.default_rng(1)
-    n = 64
-    xz = in_proj(params, n, rng)
-    lengths = lengths_of(n, rng)
+    xz = in_proj(params, len(lengths), rng)
     xc = cad.conv_plain(xz, lengths, params.conv_w[0], params.conv_b[0])
     dbc = (xc.bfloat16() @ params.w_x[0].bfloat16()[:, None]).contiguous()
     a2 = (-torch.exp(params.a_log[0]) * cc.LOG2E).contiguous()
-    got = cc.scan_cuda(xz, dbc, lengths.int(), params.conv_w[0], params.conv_b[0],
-                       params.w_dt[0], params.b_dt[0], a2, params.d[0]).float()
-    want = cad.scan_plain(xz, dbc, xc, lengths, params.w_dt[0], params.b_dt[0],
+    return (xz, dbc, lengths.int(), params.conv_w[0], params.conv_b[0], params.w_dt[0],
+            params.b_dt[0], a2, params.d[0]), xc
+
+
+def assert_scan_matches_plain(params, lengths, rng):
+    """The scan kernel within bf16's rounding of scan_plain on [0, L) and
+    exactly 0 past each row's length."""
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    args, xc = scan_args(params, lengths, rng)
+    got = cc.scan_cuda(*args).float()
+    want = cad.scan_plain(args[0], args[1], xc, lengths, params.w_dt[0], params.b_dt[0],
                           params.a_log[0], params.d[0])
     scale = want.abs().max()
     assert torch.all((got - want).abs() <= BF16_REL * want.abs() + 1e-5 * scale)
     past = torch.arange(T, device="cuda")[None, :] >= lengths[:, None]
     assert torch.all(got[past] == 0)
+
+
+def test_scan_kernel_against_plain(params):
+    rng = np.random.default_rng(1)
+    assert_scan_matches_plain(params, lengths_of(64, rng), rng)
+
+
+def test_scan_softplus_and_silu_are_the_plain_ones():
+    """The scan kernel's branch-free softplus and SiLU give the bits of
+    v > 20 ? v : log1pf(__expf(v)) and of the conv kernel's SiLU for every
+    float32 input."""
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    assert cc.scan_arith_check() == (0, 0)
+
+
+def boundary_lengths():
+    """Every boundary of the scan kernel's schedule: its step group U and
+    staged chunk TC (as built), and the batch's width T."""
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    info = cc.scan_info()
+    U, C = info["group"], info["chunk"]
+    return sorted({0, 1, U - 1, U, U + 1, C - 1, C, C + 1, 2 * C + U - 1, T - 1, T})
+
+
+def test_scan_kernel_at_boundary_lengths(params):
+    """Rows whose lengths sit on the group's, the chunk's and the batch's
+    edges, each three times, against scan_plain."""
+    lengths = torch.tensor(boundary_lengths() * 3, device="cuda")
+    assert_scan_matches_plain(params, lengths, np.random.default_rng(6))
+
+
+def test_scan_kernel_rows_independent_of_padding(params):
+    """A row's output on [0, L) is the same bits whether it is computed in
+    a T-wide batch beside other rows or alone at width L, and two
+    launches give the same bits."""
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+
+    rng = np.random.default_rng(7)
+    lengths = torch.tensor([L for L in boundary_lengths() if L > 0]
+                           + rng.integers(1, T + 1, 6).tolist(), device="cuda")
+    args, _ = scan_args(params, lengths, rng)
+    got = cc.scan_cuda(*args)
+    assert torch.equal(got, cc.scan_cuda(*args))
+    xz, dbc = args[0], args[1]
+    for i, L in enumerate(lengths.tolist()):
+        alone = cc.scan_cuda(xz[i:i + 1, :L].contiguous(), dbc[:, i:i + 1, :L].contiguous(),
+                             lengths[i:i + 1].int(), *args[3:])
+        assert torch.equal(alone[0], got[i, :L]), f"row {i} (L = {L})"
 
 
 def test_kernel_path_against_plain(params):
