@@ -7,9 +7,9 @@
     python3 chip_smoke.py --caduceus # the Caduceus kernels and its detect
                                      # path alone (the caduceus phase)
     python3 chip_smoke.py --cards    # build + the main path, then at -d 0,1
-                                     # (detect, serve, the portable runner
-                                     # and --precision exact) and training
-                                     # over every card (needs two cards)
+                                     # (detect, serve and --precision exact)
+                                     # and training over every card (needs
+                                     # two cards)
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -161,8 +161,8 @@ Phases, one JSON line each; any failure exits non-zero:
             starts from the scan's state: no flip at a margin >= 5e-3), and
             the stage timer of its jobs (the CLI's --profile), on in-process
   config    the bf16 config (runtime.compute_dtype=bfloat16, the fast_bf16
-            kernel) and the portable runner (runtime.native=false), each a
-            CLI run over 2 x 16384 pairs checked against plain exact labels
+            kernel), a CLI run over 2 x 16384 pairs checked against plain
+            exact labels
   trace     the main path again under --trace-dir: the card's busy share of
             the run's wall time, read from the torch.profiler trace
   resume    the main path with --resume, its wall against plain runs of the
@@ -179,9 +179,8 @@ Phases, one JSON line each; any failure exits non-zero:
             outputs); each host's wall and high launches
   cards     with two cards or more: the main path at -d 0,1, outputs equal
             to the main phase's, high launched on each card; serve over the
-            same pairs on one card and at -d 0,1, outputs equal; the
-            portable runner (runtime.native=false) at -d 0,1, outputs equal
-            to the main phase's; and --precision exact (3.3x high's
+            same pairs on one card and at -d 0,1, outputs equal; and
+            --precision exact (3.3x high's
             kernel time) on one card and at -d 0,1, outputs equal, both
             walls; with one card a line that says it was skipped
 
@@ -2497,8 +2496,8 @@ def phase_serve(params, tmp):
 
 
 def phase_config(params, tmp):
-    """The bf16 config and the portable runner, one CLI run each over the
-    same 2 x 16384 pairs, against plain exact labels."""
+    """The bf16 config, one CLI run over 2 x 16384 pairs, against plain
+    exact labels."""
     from ribodetector_tpu_torch.config import DEFAULT_CONFIG
     from ribodetector_tpu_torch.runtime.ensure import paired_final_labels
 
@@ -2508,32 +2507,23 @@ def phase_config(params, tmp):
     want = paired_final_labels(logits[0], logits[1], "both")
     margin = margin_of(*logits)
     with open(DEFAULT_CONFIG) as fh:
-        base = json.load(fh)
-    launches = {}
-    # flips allowed below: bf16 state moves logits by ~0.1-0.2 against fp32
-    # (the fast_bf16 kernel against exact in the kernels phase); the
-    # portable runner runs high, under the probe's 5e-3 margin
-    for name, runtime, mode, tol in (("bf16", {"compute_dtype": "bfloat16"},
-                                      "fast_bf16", 0.5),
-                                     ("portable", {"native": False}, "high", 5e-3)):
-        cfg = copy.deepcopy(base)
-        cfg["runtime"].update(runtime)
-        path = os.path.join(tmp, f"config_{name}.json")
-        with open(path, "w") as fh:
-            json.dump(cfg, fh)
-        out, files = outputs(tmp, name, True, "both")
-        wall, launches[name] = run_cli(["-c", path, "-l", "100", "-i", *inputs,
-                                        *out, "-e", "both"])
-        got = read_partition(files, n)
-        bad = got != want
-        emit("config", run=name, runtime=runtime, pairs=n, wall_s=wall,
-             launches=launches[name], flip_margin_allowed=tol,
-             mismatches=int(bad.sum()),
-             max_mismatch_margin=float(margin[bad].max(initial=0.0)))
-        check(not bad[margin >= tol].any(),
-              f"{name}: partition disagrees with exact labels at margin >= {tol}")
-        check(launches[name][mode] > 0, f"{name}: never launched the {mode} kernel")
-    return launches["bf16"]
+        cfg = json.load(fh)
+    cfg["runtime"]["compute_dtype"] = "bfloat16"
+    path = os.path.join(tmp, "config_bf16.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh)
+    out, files = outputs(tmp, "bf16", True, "both")
+    wall, launches = run_cli(["-c", path, "-l", "100", "-i", *inputs, *out, "-e", "both"])
+    bad = read_partition(files, n) != want
+    # flips allowed below 0.5: bf16 state moves logits by ~0.1-0.2 against
+    # fp32 (the fast_bf16 kernel against exact in the kernels phase)
+    emit("config", run="bf16", runtime=cfg["runtime"], pairs=n, wall_s=wall,
+         launches=launches, flip_margin_allowed=0.5, mismatches=int(bad.sum()),
+         max_mismatch_margin=float(margin[bad].max(initial=0.0)))
+    check(not bad[margin >= 0.5].any(),
+          "bf16: partition disagrees with exact labels at margin >= 0.5")
+    check(launches["fast_bf16"] > 0, "bf16: never launched the fast_bf16 kernel")
+    return launches
 
 
 def phase_trace(tmp, inputs, want, untraced_wall):
@@ -2796,24 +2786,6 @@ def phase_cards(tmp, inputs):
     check(all(per_card.get(k, {}).get("high", 0) > 0 for k in (0, 1)),
           f"high was not launched on both cards: {per_card}")
     serve_cards(tmp, inputs)
-
-    # the portable runner's split over the cards (Predictor._classify)
-    from ribodetector_tpu_torch.config import DEFAULT_CONFIG
-
-    with open(DEFAULT_CONFIG) as fh:
-        cfg = json.load(fh)
-    cfg["runtime"]["native"] = False
-    path = os.path.join(tmp, "config_portable_cards.json")
-    with open(path, "w") as fh:
-        json.dump(cfg, fh)
-    argv, files = main_argv(tmp, "cards_portable", inputs)
-    wall, launches = run_cli(["-c", path, *argv, "-d", "0,1"])
-    per_card = lstm_cuda.card_launches()
-    same_outputs(files, want, "cards (portable runner, -d 0,1)")
-    emit("cards", run="portable", cards=2, wall_s=wall, launches=launches,
-         card_launches=per_card)
-    check(all(per_card.get(k, {}).get("high", 0) > 0 for k in (0, 1)),
-          f"the portable runner did not launch high on both cards: {per_card}")
 
     # --precision exact (3.3x high's kernel time) on one card and at -d 0,1
     walls, files = {}, {}

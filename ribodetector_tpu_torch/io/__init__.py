@@ -1,15 +1,11 @@
 from ribodetector_tpu_torch.io.format import get_seq_format
 from ribodetector_tpu_torch.io.fastx import seq_parser, parse_file, open_seq_file
-from ribodetector_tpu_torch.io.chunks import get_seq_chunks, get_pairedread_chunks, load_reads
-from ribodetector_tpu_torch.io.writer import open_for_write
+from ribodetector_tpu_torch.io.chunks import load_reads
 
 __all__ = [
     "get_seq_format",
     "seq_parser",
     "parse_file",
     "open_seq_file",
-    "get_seq_chunks",
-    "get_pairedread_chunks",
     "load_reads",
-    "open_for_write",
 ]

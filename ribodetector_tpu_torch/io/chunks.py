@@ -1,19 +1,10 @@
-"""Bounded chunk iterators over sequence files.
+"""Whole-file record loading.
 
-Behavior parity with the reference's chunked loaders
-(reference: ribodetector/data_loader/seq_encoder.py:56-92):
-
-- ``load_reads``: whole-file load into a list of records (seq_encoder.py:56-72,
-  inference path only -- the training-era ``label`` branch is a separate tool
-  concern and intentionally not replicated here).
-- ``get_seq_chunks``: yields lists of at most ``chunk_size`` records
-  (seq_encoder.py:75-87).
-- ``get_pairedread_chunks``: zips the two per-file chunk iterators; like the
-  reference (seq_encoder.py:90-92) this silently truncates to the shorter
-  file (quirk #8 in SURVEY.md).
+Behavior parity with the reference's ``load_reads``
+(reference: ribodetector/data_loader/seq_encoder.py:56-72, inference path
+only -- the training-era ``label`` branch is a separate tool concern and
+intentionally not replicated here).
 """
-
-from itertools import islice
 
 from ribodetector_tpu_torch.io.fastx import open_seq_file, seq_parser
 
@@ -23,23 +14,3 @@ def load_reads(seq_file):
     fh, seq_type = open_seq_file(seq_file)
     with fh:
         return list(seq_parser(fh, seq_type))
-
-
-def get_seq_chunks(seq_file, chunk_size=1048576):
-    """Yield successive lists of up to chunk_size records."""
-    fh, seq_type = open_seq_file(seq_file)
-    with fh:
-        seq_iterator = seq_parser(fh, seq_type)
-        while True:
-            seqs_chunk = list(islice(seq_iterator, chunk_size))
-            if not seqs_chunk:
-                break
-            yield seqs_chunk
-
-
-def get_pairedread_chunks(r1_seq_file, r2_seq_file, chunk_size=1048576):
-    """Yield (r1_chunk, r2_chunk) tuples; truncates to the shorter file."""
-    yield from zip(
-        get_seq_chunks(r1_seq_file, chunk_size),
-        get_seq_chunks(r2_seq_file, chunk_size),
-    )

@@ -1,36 +1,22 @@
-"""Deterministic output writers.
+"""Output writers.
 
-Behavior parity with the reference's ``open_for_write``
-(reference: ribodetector/detect.py:729-741, detect_cpu.py:742-754):
-gzip with compresslevel=5 when the filename ends with "gz", plain text
-otherwise. Records are written as '\n'.join(record_lines) batches by the
-runtime, preserving original header/+/qual lines verbatim (quirk #11).
+The reference's ``open_for_write`` (ribodetector/detect.py:729-741,
+detect_cpu.py:742-754) picks gzip when the filename ends with "gz" and
+plain text otherwise; so does ``open_for_write_bytes``. The runtime writes
+records as verbatim byte ranges of the input, so header/+/qual lines pass
+through unchanged (quirk #11).
 """
-
-import gzip
-
-
-def open_for_write(read_file: str):
-    """Open a plain or gzipped text file for writing based on its
-    extension. latin-1, matching the reader (io/fastx.open_seq_file): one
-    char = one byte, so records with non-ASCII bytes pass through
-    verbatim (quirk #11) instead of being re-encoded as UTF-8 mojibake;
-    identical bytes to the reference for all-ASCII content (the reference
-    crashes before ever writing non-ASCII)."""
-    if read_file.endswith("gz"):
-        return gzip.open(read_file, mode="wt", compresslevel=5,
-                         encoding="latin-1")
-    return open(read_file, "w", encoding="latin-1")
 
 
 def open_for_write_bytes(read_file: str, gz_level=None):
-    """Binary twin of open_for_write, used by the native byte-gather
-    writers. gz outputs go through io.gzfast.MemberGzipWriter: libdeflate
-    level 3 by default, which matches the reference's zlib level 5
-    compression ratio at ~3.5x the speed (gzfast module docstring); each
-    batch payload is an independent gzip member, which concatenates into a
-    valid gzip file. gz_level overrides the libdeflate level (--gz-level:
-    1 = fastest deflate when the write stage bottlenecks)."""
+    """Open an output file for the native byte-gather writers, binary,
+    chosen by its extension. gz outputs go through
+    io.gzfast.MemberGzipWriter: libdeflate level 3 by default, which
+    matches the reference's zlib level 5 compression ratio at ~3.5x the
+    speed (gzfast module docstring); each batch payload is an independent
+    gzip member, which concatenates into a valid gzip file. gz_level
+    overrides the libdeflate level (--gz-level: 1 = fastest deflate when
+    the write stage bottlenecks)."""
     if read_file.endswith("gz"):
         from ribodetector_tpu_torch.io.gzfast import MemberGzipWriter
 

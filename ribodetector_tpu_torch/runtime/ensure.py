@@ -6,9 +6,8 @@ numpy twin detect_cpu.py:617-684). Label 0 = non-rRNA, 1 = rRNA (quirk #10);
 `<output>.unclassified.gz`, quirk #5).
 
 The reference loops read-by-read in Python; here the decision is one
-vectorized numpy expression over the batch logits, and read bucketing is a
-single stable pass preserving input order (the reference GPU path's
-deterministic ordering -- SURVEY.md 5 "race detection").
+vectorized expression over the batch logits (numpy, or torch on the
+device).
 """
 
 import numpy as np
@@ -57,21 +56,3 @@ def paired_final_labels_torch(r1_logits, r2_logits, ensure: str):
     if ensure == "both":
         return torch.where(a1 == a2, a1, torch.full_like(a1, -1)).to(torch.int8)
     raise ValueError(f"unknown ensure mode: {ensure}")
-
-
-def separate_reads(records, labels):
-    """Bucket records by label, preserving input order.
-
-    Returns {label: [record_text, ...]} with record_text = '\n'.join(lines)
-    (reference: detect.py:600-614; record join quirk #11).
-    """
-    buckets = {}
-    for rec, label in zip(records, labels):
-        buckets.setdefault(int(label), []).append("\n".join(rec))
-    return buckets
-
-
-def separate_paired_reads(r1_records, r1_logits, r2_records, r2_logits, ensure):
-    """Reconcile + bucket both ends. Returns (r1_buckets, r2_buckets)."""
-    labels = paired_final_labels(r1_logits, r2_logits, ensure)
-    return separate_reads(r1_records, labels), separate_reads(r2_records, labels)

@@ -1043,25 +1043,6 @@ class NativeRunner:
         self.p = predictor
         self._hosts = getattr(predictor, "hosts", 1)
         self._host_id = getattr(predictor, "host_id", 0)
-        # tuning knobs (config runtime.depth / runtime.dispatchers):
-        # pipeline depth and H2D dispatcher-thread count
-        rt = predictor.config.get("runtime", {})
-        self.DEPTH = int(rt.get("depth", self.DEPTH))
-        # config values bypass any CLI validation (same reasoning as the
-        # gz_level check): depth < 2 would shrink the pinned-window budget
-        # below _ChunkAcc.MAX_WINDOWS and break the slot-pool sizing proof
-        if not 2 <= self.DEPTH <= 64:
-            raise RuntimeError(
-                f"runtime.depth must be in [2, 64], got {self.DEPTH}"
-            )
-        self._dispatchers_cfg = rt.get("dispatchers", None)
-        if self._dispatchers_cfg is not None:
-            self._dispatchers_cfg = int(self._dispatchers_cfg)
-            if not 1 <= self._dispatchers_cfg <= 32:
-                raise RuntimeError(
-                    "runtime.dispatchers must be in [1, 32], got "
-                    f"{self._dispatchers_cfg}"
-                )
         # Device batch: the reference's -m formula (quirk #9) sizes chunks
         # (--chunk_size parity) and bounds host memory; the device call
         # itself is lifted to up to 131072 rows per input file to cut
@@ -1073,9 +1054,6 @@ class NativeRunner:
             part if part >> 4 >= self.LADDER_MIN and rpc >= 2 * part else None
         )
         self._need_lengths = predictor.semantics == "packed"
-        # 2-bit transfer lane for clean full-length reads (runtime.b2=false
-        # pins everything to base-5; labels are identical either way)
-        self._b2_enabled = rt.get("b2", True) is not False
         self._writer = None
         import time
 
@@ -1175,20 +1153,17 @@ class NativeRunner:
             _BucketStager(native.b5_packed_len(tb), paired, pinned)
             for tb in buckets
         ]
-        if self._b2_enabled:
-            # extra transfer lane for b2-eligible records (clean ACGTU at
-            # full -l): the 2-bit rows are 25% smaller than base-5 on the
-            # dominant H2D path. Such reads are full-length by definition,
-            # so the lane is a twin of the top bucket (pad_gap 0); label
-            # scatter-back by absolute index makes lane routing invisible
-            # to output order. Building an infer launches nothing, so the
-            # extra lane costs nothing unless a b2 record arrives.
-            infers.append(
-                p._build_infers(packed_max_len=p.len, emit=emit, pad_gap=0, fmt="b2")
-            )
-            stagers.append(
-                _BucketStager(native.b2_packed_len(p.len), paired, pinned)
-            )
+        # the last lane carries b2-eligible records (clean ACGTU at full
+        # -l): the 2-bit rows are 25% smaller than base-5 on the dominant
+        # H2D path. Such reads are full-length by definition, so the lane
+        # is a twin of the top bucket (pad_gap 0); label scatter-back by
+        # absolute index makes lane routing invisible to output order.
+        # Building an infer launches nothing, so the lane costs nothing
+        # unless a b2 record arrives.
+        infers.append(
+            p._build_infers(packed_max_len=p.len, emit=emit, pad_gap=0, fmt="b2")
+        )
+        stagers.append(_BucketStager(native.b2_packed_len(p.len), paired, pinned))
         return infers, stagers
 
     def _device_call_with(self, infers, st, sl):
@@ -1306,7 +1281,7 @@ class NativeRunner:
         input file -- the 2-bit lane copies from the b2 rows, every other
         lane from base-5."""
         need_len = self._need_lengths
-        b2lane = len(stagers) - 1 if self._b2_enabled else -1
+        b2lane = len(stagers) - 1
         t5a, t2a, lna = sides[0]
         paired = len(sides) == 2
         if paired:
@@ -1480,7 +1455,7 @@ class NativeRunner:
                     # parse-only below
                     num_read, counts = parts.restore(p)
                 elif not parts:
-                    fhs = p._open_outputs(binary=True)
+                    fhs = p._open_outputs()
                 if self._pbar is not None and num_read:
                     # the live bar resumes from the restored record count so
                     # its total agrees with the final summary
@@ -1509,11 +1484,9 @@ class NativeRunner:
                 # Labels scatter by index, so completion order is irrelevant.
                 from concurrent.futures import ThreadPoolExecutor
 
-                workers = self._dispatchers_cfg
-                if workers is None:
-                    workers = 2 if len(buckets) == 1 else 4
                 self._bucket_dispatcher = ThreadPoolExecutor(
-                    max_workers=int(workers), thread_name_prefix="rd-dispatch"
+                    max_workers=2 if len(buckets) == 1 else 4,
+                    thread_name_prefix="rd-dispatch",
                 )
                 from collections import Counter, deque
 
@@ -1602,20 +1575,16 @@ class NativeRunner:
                             b_idx = np.maximum(
                                 b_idx, route_records(lensB, toksB, buckets, p.len)
                             )
-                            if self._b2_enabled:
-                                # a pair rides the 2-bit lane only when BOTH
-                                # ends are eligible (one device batch per pair)
-                                b_idx = np.where(
-                                    (ok2 != 0) & (ok2B != 0), nb, b_idx
-                                )
+                            # a pair rides the 2-bit lane only when BOTH
+                            # ends are eligible (one device batch per pair)
+                            b_idx = np.where((ok2 != 0) & (ok2B != 0), nb, b_idx)
                             self._route_into(
                                 pending, infers, stagers, partial, acc, b_idx,
                                 [(toks, toks_b2, lens), (toksB, toksB_b2, lensB)],
                                 row0=row0,
                             )
                         else:
-                            if self._b2_enabled:
-                                b_idx = np.where(ok2 != 0, nb, b_idx)
+                            b_idx = np.where(ok2 != 0, nb, b_idx)
                             self._route_into(
                                 pending, infers, stagers, partial, acc, b_idx,
                                 [(toks, toks_b2, lens)], row0=row0,

@@ -7,10 +7,9 @@ parity with the reference:
 - weight selection: "recall" iff ensure == "norrna", else "mcc"
   (quirk #6, detect.py:64-71)
 - batch size formula (quirk #9, detect.py:555-570)
-- ensure-mode reconciliation + output bucketing (runtime/ensure.py)
-- whole-file mode (`run`) and bounded-memory chunked mode (`run_with_chunks`,
-  chunk = batch_size * chunk_size reads, detect.py:371)
-- per-batch '\n'.join writes, gzip level 5 (quirks #7, #11)
+- ensure-mode reconciliation (runtime/ensure.py)
+- whole-file mode and bounded-memory chunked mode (chunk = batch_size *
+  chunk_size reads, detect.py:371)
 - run-summary log messages (detect.py:210-247)
 
 - restartable streaming (--resume), and multi-host runs (--hosts,
@@ -20,37 +19,23 @@ parity with the reference:
   card, each device batch split into row slices, one per card
 
 The run itself is the native streaming runner
-(runtime/native_pipeline.py), or the portable runner below (`run`,
-`run_with_chunks`: Python parsing and encoding, one [rows, len] token batch
-per device call) when the config sets runtime.native=false. The classify
-step runs on the card through the hand-written CUDA kernels
-(ops/lstm_cuda.py), or on the CPU through the plain recurrence when the
-caller asks for the CPU (cli.main_cpu).
+(runtime/native_pipeline.py), the port's only runner. The classify step
+runs on the card through the hand-written CUDA kernels (ops/lstm_cuda.py),
+or on the CPU through the plain recurrence when the caller asks for the
+CPU (cli.main_cpu).
 """
 
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from ribodetector_tpu_torch.config import PACKAGE_DIR, colors
-from ribodetector_tpu_torch.encode import PAD_TOKEN, encode_batch
-from ribodetector_tpu_torch.io import (
-    get_pairedread_chunks,
-    get_seq_chunks,
-    load_reads,
-    open_for_write,
-)
 from ribodetector_tpu_torch.runtime.batching import auto_batch_size
-from ribodetector_tpu_torch.runtime.ensure import separate_paired_reads, separate_reads
-
-try:
-    from tqdm import tqdm
-except ImportError:  # pragma: no cover
-    def tqdm(it, **kw):
-        return it
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+# runtime keys of the JAX package that select or tune its runners; the port
+# has one runner and refuses them rather than ignore them
+RETIRED_RUNTIME_KEYS = ("native", "depth", "dispatchers", "b2")
 
 
 def resolve_state_path(path):
@@ -162,8 +147,8 @@ class Predictor:
         return devices
 
     def load_model(self):
-        """Select the device, load weights, run the startup parity probe and
-        build the portable runner's classify step."""
+        """Check the config's runtime section, select the device, load
+        weights and run the startup parity probe."""
         import threading
 
         import torch
@@ -175,6 +160,14 @@ class Predictor:
             resolve_kernel,
         )
 
+        runtime_cfg = self.config.get("runtime", {})
+        for key in RETIRED_RUNTIME_KEYS:
+            if key in runtime_cfg:
+                raise ValueError(
+                    f"runtime.{key} is not a setting of ribodetector_tpu_torch: "
+                    "the port has one runner, the native streaming runner, "
+                    f"with fixed settings; remove runtime.{key} from the config"
+                )
         self.get_state_file()
         # the config's arch.type selects the model; the npz must hold it
         self.arch = check_arch(self.config.get("arch", {}).get("type", "BiLSTMParams"))
@@ -190,11 +183,8 @@ class Predictor:
         self.params = self._card_params[0]
         # one Caduceus micro-batch's activations at a time on each card
         self._forward_locks = [threading.Lock() for _ in self.devices]
-        runtime_cfg = self.config.get("runtime", {})
         if self.arch == "CaduceusParams":
             self._load_caduceus(runtime_cfg)
-            with self.timer.stage("load.steps"):
-                self._infer = self._build_infers()
             return
         self.semantics = getattr(self.args, "semantics", None) or runtime_cfg.get(
             "semantics", "dense"
@@ -237,8 +227,6 @@ class Predictor:
                 if self.device.type == "cuda" and self.kernel == "plain" else "",
             )
         )
-        with self.timer.stage("load.steps"):
-            self._infer = self._build_infers()
 
     def _load_caduceus(self, runtime_cfg):
         """The Caduceus's settings: packed semantics (each read over its own
@@ -388,8 +376,8 @@ class Predictor:
         """Classify step (eager torch on card `card` of the run's devices,
         with that card's copy of the weights).
 
-        packed_max_len=None: infer(tokens [B,T] uint8, lengths) -- the
-        portable runner. packed_max_len=T: infer(ptokens [B,(T+2)//3] uint8
+        packed_max_len=None: infer(tokens [B,T] uint8, lengths), over
+        unpacked tokens. packed_max_len=T: infer(ptokens [B,(T+2)//3] uint8
         base-5 packed, lengths) -- unpacked on the device
         (ops.dispatch.unpack_b5_tokens); lengths is ignored for dense
         semantics.
@@ -542,37 +530,6 @@ class Predictor:
 
         return classify
 
-    # ------------------------------------------------------------ encode
-
-    def _encode_padded(self, seqs, rows):
-        """Encode to a fixed [rows, len] token matrix (pad rows with PAD_TOKEN)."""
-        tokens = np.full((rows, self.len), PAD_TOKEN, dtype=np.uint8)
-        _, lengths_n = encode_batch(seqs, self.len, out_tokens=tokens)
-        lengths = np.zeros(rows, dtype=np.int32)
-        lengths[: len(seqs)] = lengths_n
-        return tokens, lengths
-
-    def _classify(self, seqs, rows):
-        """Launch one classify step per card, each over its contiguous row
-        slice; returns the [rows_k, 2] logits of each as a tensor on its
-        card (the cards compute while the host goes on; fetch_logits joins
-        them in row order)."""
-        import torch
-
-        tokens, lengths = self._encode_padded(seqs, rows)
-        n = len(self.devices)
-        bounds = [rows * k // n for k in range(n + 1)]
-        return [
-            infer(torch.from_numpy(tokens[a:b]).to(dev),
-                  torch.from_numpy(lengths[a:b]).to(dev))
-            for infer, dev, a, b in zip(self._infer, self.devices, bounds, bounds[1:])
-        ]
-
-    @staticmethod
-    def fetch_logits(parts):
-        """_classify's per-card logits -> one [rows, 2] numpy array."""
-        return np.concatenate([t.cpu().numpy() for t in parts])
-
     # ------------------------------------------------------------- runs
 
     def detect(self):
@@ -643,11 +600,6 @@ class Predictor:
                     "(--coordinator): per-host completion manifests live "
                     "in the shared parts layout"
                 )
-            if not self._use_native():
-                raise RuntimeError(
-                    "--hosts requires the native streaming path "
-                    "(g++-built parser; runtime.native=true)"
-                )
             if self.distributed:
                 self.logger.info(
                     "Coordinated host {}/{}: chunk parts on the shared "
@@ -693,23 +645,11 @@ class Predictor:
             )
         )
 
+        from ribodetector_tpu_torch.runtime.native_pipeline import NativeRunner
         from ribodetector_tpu_torch.runtime.profiling import maybe_trace
 
         with maybe_trace(getattr(self.args, "trace_dir", None), self.device.type):
-            if self._use_native():
-                from ribodetector_tpu_torch.runtime.native_pipeline import NativeRunner
-
-                NativeRunner(self).run()
-            else:
-                if getattr(self.args, "resume", False):
-                    self.logger.warning(
-                        "--resume is only supported on the native streaming "
-                        "path; running without it."
-                    )
-                if self.chunk_size is None:
-                    self.run()
-                else:
-                    self.run_with_chunks()
+            NativeRunner(self).run()
         if self.distributed:
             self._finalize_distributed()
 
@@ -721,12 +661,6 @@ class Predictor:
         if f.endswith("gz"):
             return f[: -len("gz")] + k + ".gz"
         return f + "." + k
-
-    def _use_native(self):
-        """The native streaming runner unless the config sets
-        runtime.native=false (the portable runner). A native parser that
-        cannot be built raises; it never selects the portable runner."""
-        return self.config.get("runtime", {}).get("native", True) is not False
 
     def _log_progress(self, num_read, rate=None):
         self.logger.info(
@@ -740,19 +674,12 @@ class Predictor:
 
     # -- output file management
 
-    def _open_outputs(self, binary=False):
-        """Output handles: binary for the native byte-gather writers, text
-        for the portable runner."""
+    def _open_outputs(self):
+        """Output handles for the native runner's byte-gather writers."""
         from ribodetector_tpu_torch.io.writer import open_for_write_bytes
 
-        if binary:
-            gz_level = self.gz_level
-
-            def opener(f):
-                return open_for_write_bytes(f, gz_level=gz_level)
-
-        else:
-            opener = open_for_write
+        def opener(f):
+            return open_for_write_bytes(f, gz_level=self.gz_level)
 
         fhs = {}
         if self.rrna is not None:
@@ -795,31 +722,6 @@ class Predictor:
                         first = e
         if first is not None:
             raise first
-
-    @staticmethod
-    def _write_bucket(fh, bucket):
-        if bucket:
-            fh.write("\n".join(bucket) + "\n")
-
-    def _emit_paired(self, fhs, r1_dict, r2_dict, counts):
-        counts["norrna"] += len(r1_dict.get(0, ()))
-        counts["rrna"] += len(r1_dict.get(1, ()))
-        self._write_bucket(fhs["norrna"][0], r1_dict.get(0, ()))
-        self._write_bucket(fhs["norrna"][1], r2_dict.get(0, ()))
-        if "rrna" in fhs:
-            self._write_bucket(fhs["rrna"][0], r1_dict.get(1, ()))
-            self._write_bucket(fhs["rrna"][1], r2_dict.get(1, ()))
-        if "unclf" in fhs:
-            counts["unclf"] += len(r1_dict.get(-1, ()))
-            self._write_bucket(fhs["unclf"][0], r1_dict.get(-1, ()))
-            self._write_bucket(fhs["unclf"][1], r2_dict.get(-1, ()))
-
-    def _emit_single(self, fhs, buckets, counts):
-        counts["norrna"] += len(buckets.get(0, ()))
-        counts["rrna"] += len(buckets.get(1, ()))
-        self._write_bucket(fhs["norrna"][0], buckets.get(0, ()))
-        if "rrna" in fhs:
-            self._write_bucket(fhs["rrna"][0], buckets.get(1, ()))
 
     def _finalize_distributed(self):
         """Multi-host epilogue: sum the per-host summary counters over the
@@ -933,138 +835,3 @@ class Predictor:
                     colors.BOLD, colors.OKCYAN, counts["unclf"], colors.ENDC
                 )
             )
-
-    # -- the portable runner: batch iteration with a one-deep async pipeline
-
-    def _paired_batches(self, r1_reads, r2_reads):
-        """Classify paired reads with one fused [2B, T] device call per batch.
-
-        Yields (r1_records, r2_records, r1_logits, r2_logits) per batch; the
-        device step of batch i runs while the host encodes batch i+1 and
-        writes batch i-1.
-        """
-        bs = self.batch_size
-        n = len(r1_reads)
-        pending = None
-        for start in range(0, n, bs):
-            r1_b = r1_reads[start : start + bs]
-            r2_b = r2_reads[start : start + bs]
-            nb = len(r1_b)
-            seqs = [r[1] for r in r1_b] + [r[1] for r in r2_b]
-            logits_dev = self._classify(seqs, 2 * bs)
-            if pending is not None:
-                yield self._finalize_paired(*pending)
-            pending = (r1_b, r2_b, logits_dev, nb)
-        if pending is not None:
-            yield self._finalize_paired(*pending)
-
-    def _finalize_paired(self, r1_b, r2_b, logits_dev, nb):
-        # the encoder packs R1 rows at [0, nb) and R2 rows at [nb, 2nb)
-        # (remaining rows up to 2*batch_size are padding)
-        logits = self.fetch_logits(logits_dev)
-        return r1_b, r2_b, logits[:nb], logits[nb : 2 * nb]
-
-    def _single_batches(self, reads):
-        bs = self.batch_size
-        pending = None
-        for start in range(0, len(reads), bs):
-            batch = reads[start : start + bs]
-            logits_dev = self._classify([r[1] for r in batch], bs)
-            if pending is not None:
-                yield self._finalize_single(*pending)
-            pending = (batch, logits_dev)
-        if pending is not None:
-            yield self._finalize_single(*pending)
-
-    def _finalize_single(self, batch, logits_dev):
-        return batch, self.fetch_logits(logits_dev)[: len(batch)]
-
-    # -- whole-file mode (detect.py:121-324)
-
-    def run(self):
-        counts = {"norrna": 0, "rrna": 0, "unclf": 0}
-        if self.is_paired:
-            # parse R1/R2 concurrently (reference uses Pool(2), detect.py:131-132)
-            with ThreadPoolExecutor(2) as ex:
-                r1_reads, r2_reads = ex.map(load_reads, self.input)
-            num_seqs = min(len(r1_reads), len(r2_reads))
-            r1_reads, r2_reads = r1_reads[:num_seqs], r2_reads[:num_seqs]
-            self.logger.info(
-                "{}{}{}{} sequences loaded!".format(
-                    colors.BOLD, colors.OKCYAN, num_seqs, colors.ENDC
-                )
-            )
-            fhs = self._open_outputs()
-            try:
-                num_batches = -(-num_seqs // self.batch_size) if num_seqs else 0
-                for r1_b, r2_b, l1, l2 in tqdm(
-                    self._paired_batches(r1_reads, r2_reads), total=num_batches
-                ):
-                    r1_dict, r2_dict = separate_paired_reads(
-                        r1_b, l1, r2_b, l2, self.args.ensure
-                    )
-                    self._emit_paired(fhs, r1_dict, r2_dict, counts)
-                self._log_summary(num_seqs, counts)
-            finally:
-                # always close (serve keeps the process alive across failed
-                # jobs; leaked handles leave .gz without trailers)
-                self._close_outputs(fhs)
-        else:
-            reads = load_reads(*self.input)
-            num_seqs = len(reads)
-            self.logger.info(
-                "{}{}{}{} sequences loaded!".format(
-                    colors.BOLD, colors.OKCYAN, num_seqs, colors.ENDC
-                )
-            )
-            fhs = self._open_outputs()
-            try:
-                num_batches = -(-num_seqs // self.batch_size) if num_seqs else 0
-                for batch, logits in tqdm(
-                    self._single_batches(reads), total=num_batches
-                ):
-                    buckets = separate_reads(batch, logits.argmax(1))
-                    self._emit_single(fhs, buckets, counts)
-                self._log_summary(num_seqs, counts)
-            finally:
-                self._close_outputs(fhs)
-
-    # -- chunked low-memory mode (detect.py:326-523)
-
-    def run_with_chunks(self):
-        counts = {"norrna": 0, "rrna": 0, "unclf": 0}
-        num_read = 0
-        fhs = None
-        chunk_reads = self.batch_size * self.chunk_size
-        try:
-            if self.is_paired:
-                for r1_chunk, r2_chunk in get_pairedread_chunks(
-                    *self.input, chunk_size=chunk_reads
-                ):
-                    if fhs is None:
-                        fhs = self._open_outputs()
-                    n = min(len(r1_chunk), len(r2_chunk))
-                    num_read += n
-                    for r1_b, r2_b, l1, l2 in self._paired_batches(
-                        r1_chunk[:n], r2_chunk[:n]
-                    ):
-                        r1_dict, r2_dict = separate_paired_reads(
-                            r1_b, l1, r2_b, l2, self.args.ensure
-                        )
-                        self._emit_paired(fhs, r1_dict, r2_dict, counts)
-                    self._log_progress(num_read)
-            else:
-                for chunk in get_seq_chunks(*self.input, chunk_size=chunk_reads):
-                    if fhs is None:
-                        fhs = self._open_outputs()
-                    num_read += len(chunk)
-                    for batch, logits in self._single_batches(chunk):
-                        buckets = separate_reads(batch, logits.argmax(1))
-                        self._emit_single(fhs, buckets, counts)
-                    self._log_progress(num_read)
-            if fhs is None:
-                fhs = self._open_outputs()
-            self._log_summary(num_read, counts)
-        finally:
-            if fhs is not None:
-                self._close_outputs(fhs)

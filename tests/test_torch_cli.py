@@ -9,10 +9,12 @@ well-defined. -l 50 -m 3 --chunk_size 1 keeps the device batch at 1024 rows.
 The paired ensure modes are in test_torch_cli_paired.py.
 
 Beyond the default run: --precision fast (on the CPU both packages run the
-fp32 recurrence whatever the precision), the portable runner
-(runtime.native=false, at -m 2: the 256-row batch floor), the bf16 config
+fp32 recurrence whatever the precision), -m 2 (the 256-row batch floor)
+whole-file and at --chunk_size 1, the bf16 config
 (runtime.compute_dtype=bfloat16, held to byte identity only after every
-read's JAX bf16 margin is checked to be >= 0.25) and --trace-dir.
+read's JAX bf16 margin is checked to be >= 0.25), --trace-dir, and the
+refusal of the JAX package's runner keys (runtime.native, depth,
+dispatchers, b2).
 """
 
 import gzip
@@ -179,16 +181,16 @@ def test_precision_fast(tmp_path, reads, ref_params_path):
 
 
 @pytest.mark.parametrize("chunked", [False, True])
-def test_portable_runner(tmp_path, reads, ref_params_path, chunked):
-    """runtime.native=false: Python parsing, one [256, 50] batch per call,
-    text writers; whole-file and --chunk_size 1."""
+def test_small_batches(tmp_path, reads, ref_params_path, chunked):
+    """-m 2 (the 256-row batch floor): whole-file, where a chunk is at least
+    131072 records and the device batch is lifted to it, and --chunk_size 1,
+    a 256-record chunk."""
     names, seqs = reads
     assert_margins(ref_params_path, seqs)
     inp = tmp_path / "in.fq.gz"
     write_fastq(inp, names, seqs)
     common = ["-l", str(LEN), "-m", "2"] + (["--chunk_size", "1"] if chunked else [])
-    assert_identical(*run_both(tmp_path, [str(inp)], gz_out=True, common=common,
-                               configs=runtime_configs(tmp_path, native=False)))
+    assert_identical(*run_both(tmp_path, [str(inp)], gz_out=True, common=common))
 
 
 def test_bf16_config(tmp_path, ref_params_path):
@@ -203,28 +205,23 @@ def test_bf16_config(tmp_path, ref_params_path):
         configs=runtime_configs(tmp_path, compute_dtype="bfloat16")))
 
 
-@pytest.mark.parametrize("native", [True, False])
-def test_trace_dir(tmp_path, reads, native):
+def test_trace_dir(tmp_path, reads):
     """--trace-dir writes a torch.profiler Chrome trace of the run. The
     profiler records every thread where the installed torch can
     (profiling.all_threads_config), and the thread that started it
-    elsewhere: the portable runner classifies on that thread, the native
-    runner on its rd-dispatch threads (test_torch_profiling.py holds the
-    worker threads' stages in the trace; on the card, CUPTI records the
-    kernels of every thread)."""
+    elsewhere; the runner classifies on its rd-dispatch threads
+    (test_torch_profiling.py holds the worker threads' stages in the trace;
+    on the card, CUPTI records the kernels of every thread)."""
     names, seqs = reads
     inp = tmp_path / "in.fq"
     write_fastq(inp, names, seqs)
     trace = tmp_path / "trace"
-    cfg = runtime_configs(tmp_path, native=native)[1]
-    main_cpu(["-i", str(inp), *COMMON, *cfg, "-o", str(tmp_path / "o.fq"),
+    main_cpu(["-i", str(inp), *COMMON, "-o", str(tmp_path / "o.fq"),
               "--trace-dir", str(trace)])
     files = list(trace.glob("trace_*.json"))
     assert len(files) == 1 and files[0].stat().st_size > 0
     events = json.loads(files[0].read_text())["traceEvents"]
     assert events
-    if not native:
-        assert any(e.get("cat") == "cpu_op" for e in events)
 
 
 @pytest.mark.parametrize("flag", [
@@ -253,6 +250,20 @@ def test_bad_compute_dtype_is_refused(tmp_path):
     write_fastq(inp, ["a"], ["ACGT" * 10])
     cfg = runtime_configs(tmp_path, compute_dtype="float16")[1]
     with pytest.raises(ValueError, match="compute_dtype"):
+        main_cpu([*cfg, "-l", "40", "-i", str(inp), "-o", str(tmp_path / "o.fq")])
+    assert not (tmp_path / "o.fq").exists()
+
+
+@pytest.mark.parametrize("key,value", [("native", True), ("depth", 8),
+                                       ("dispatchers", 2), ("b2", True)])
+def test_retired_runtime_key_is_refused(tmp_path, key, value):
+    """The JAX package's runner keys select or tune runners the port does
+    not have: a config that sets one, even to the value the port runs with,
+    is refused by name before anything is written."""
+    inp = tmp_path / "in.fq"
+    write_fastq(inp, ["a"], ["ACGT" * 10])
+    cfg = runtime_configs(tmp_path, **{key: value})[1]
+    with pytest.raises(ValueError, match=rf"runtime\.{key}\b.*one runner"):
         main_cpu([*cfg, "-l", "40", "-i", str(inp), "-o", str(tmp_path / "o.fq")])
     assert not (tmp_path / "o.fq").exists()
 

@@ -4,8 +4,8 @@ per ensure mode, on the plain inputs, in a module-scoped fixture; the port
 runs on plain and on gz files, and its outputs must be byte-identical to
 JAX's (gz: decompressed content). See test_torch_cli.py for the margin
 precondition that makes byte identity well-defined. -e both also runs at
---precision fast and through the portable runner (runtime.native=false,
--m 2), whole-file and chunked."""
+--precision fast and at -m 2 (the 256-row batch floor), whole-file and at
+--chunk_size 1."""
 
 import numpy as np
 import pytest
@@ -20,7 +20,6 @@ from tests.test_torch_cli import (
     assert_margins,
     outputs,
     run_both,
-    runtime_configs,
     write_fastq,
 )
 
@@ -74,9 +73,8 @@ def test_paired_precision_fast(tmp_path, pairs):
 
 
 @pytest.mark.parametrize("chunked", [False, True])
-def test_paired_portable_runner(tmp_path, pairs, chunked):
+def test_paired_small_batches(tmp_path, pairs, chunked):
     _, files = pairs
     common = ["-l", str(LEN), "-m", "2"] + (["--chunk_size", "1"] if chunked else [])
     assert_identical(*run_both(tmp_path, files["gz"], paired=True, ensure="both",
-                               gz_out=True, common=common,
-                               configs=runtime_configs(tmp_path, native=False)))
+                               gz_out=True, common=common))

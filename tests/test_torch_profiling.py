@@ -30,7 +30,7 @@ from ribodetector_tpu_torch.train import trainer as tt
 COMMON = ["-l", "50", "-m", "3", "--chunk_size", "1"]
 # the stages of a detect call on the main thread, and of load_model
 CALL_STAGES = {"detect", "open", "steps", "route", "flush", "drain", "close"}
-LOAD_STAGES = {"load.devices", "load.weights", "load.probe", "load.steps"}
+LOAD_STAGES = {"load.devices", "load.weights", "load.probe"}
 # stages an accepted per-layer metric reads: none may hold another stage
 READ_STAGES = {"parse", "write", "infer_wait", "inflate", "deflate"}
 

@@ -9,8 +9,7 @@
 - the several-card split (-d a,b on the card) runs here over two CPU
   replicas of the model (Predictor(..., replicas=2), a test-only argument)
   and gives the outputs of one replica, and of the JAX CLI, byte for byte,
-  with both row slices classified: single-end, paired -e both, and the
-  portable runner;
+  with both row slices classified: single-end and paired -e both;
 - twins of tests/test_sharding.py's mesh tests and of test_aux.py's
   oversized-mesh check: the port's meshes over explicit device lists (CPU
   replicas, or ranks) against the JAX package's over the 8 virtual CPU
@@ -187,7 +186,6 @@ def _run_replicas(argv, replicas, calls=None):
             )
         build = p._build_infers
         p._build_infers = lambda *a, **kw: spy(build(*a, **kw))
-        p._infer = spy(p._infer)
     p.detect()
 
 
@@ -224,25 +222,6 @@ def test_card_split_matches_one_replica_and_jax(tmp_path, ref_params_path, paire
     for card, r in calls:
         rows[card].append(r)
     assert rows[0] and sorted(rows[0]) == sorted(rows[1])
-
-
-def test_card_split_portable_runner(tmp_path, ref_params_path):
-    """runtime.native=false: each [rows, len] batch splits over the
-    replicas and the logits join in row order."""
-    seqs = _seqs(700, 33)
-    _assert_margins(ref_params_path, seqs, 60)
-    inp = tmp_path / "in.fq"
-    _write(inp, seqs)
-    cfg = json.load(open(DEFAULT_CONFIG))
-    cfg["runtime"]["native"] = False
-    cfgp = tmp_path / "portable.json"
-    cfgp.write_text(json.dumps(cfg))
-    base = ["-c", str(cfgp), "-l", "60", "-i", str(inp), "-m", "2"]
-    _run_replicas([*base, "-o", str(tmp_path / "one.fq")], 1)
-    calls = []
-    _run_replicas([*base, "-o", str(tmp_path / "two.fq")], 2, calls)
-    assert (tmp_path / "two.fq").read_bytes() == (tmp_path / "one.fq").read_bytes()
-    assert {c for c, _ in calls} == {0, 1}
 
 
 def test_replicas_are_a_cpu_setting():
