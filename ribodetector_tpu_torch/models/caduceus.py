@@ -333,8 +333,31 @@ ACTIVATION_BYTES = 8 << 30
 
 
 def micro_rows(p: CaduceusParams, T: int) -> int:
-    """Reads a micro-batch of bucket width T holds: its two strands' rows
-    at bytes_per_token each position fit ACTIVATION_BYTES (8 GiB: one
-    micro-batch's activations at a time on a card, see the Predictor's
-    classify step)."""
+    """Reads a micro-batch of width T holds: its two strands' rows at
+    bytes_per_token each position fit ACTIVATION_BYTES (8 GiB: one
+    micro-batch's activations at a time on a card). The Predictor's
+    classify step asks it at each micro-batch's own width, its longest
+    read rounded up (micro_batches), not at the bucket's."""
     return max(1, ACTIVATION_BYTES // (bytes_per_token(p) * 2 * max(T, 1)))
+
+
+# a micro-batch's width is its longest read rounded up to a multiple of this
+WIDTH_STEP = 16
+
+
+def micro_batches(p: CaduceusParams, lengths, T: int):
+    """A call's reads, longest first (lengths [n], each in [1, T]), cut into
+    micro-batches [(a, b, W)]: reads [a, b) at width W, the longest one's
+    length rounded up to WIDTH_STEP and at most T. A micro-batch holds at
+    most micro_rows(p, W) reads and ends before the first read whose own
+    rounded width is smaller, so every read runs at its own width."""
+    lengths = np.asarray(lengths, np.int64)
+    widths = np.minimum(T, -(-lengths // WIDTH_STEP) * WIDTH_STEP)
+    cuts, a = [], 0
+    while a < len(widths):
+        W = int(widths[a])
+        end = int(np.searchsorted(-widths, -W, side="right"))
+        b = min(end, a + micro_rows(p, W))
+        cuts.append((a, b, W))
+        a = b
+    return cuts

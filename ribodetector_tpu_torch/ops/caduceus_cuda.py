@@ -1,8 +1,8 @@
 """Caduceus-Ph on the card: the kernel path of models/caduceus.py, around
 csrc/caduceus_scan.cu.
 
-Per layer of a micro-batch of N rows (a bucket's reads and their reverse
-complements) of width T:
+Per layer of a micro-batch of N rows (reads of one rounded length and
+their reverse complements) of width T:
 
     r  += h; u = RMSNorm(r) * g     [N, T, D] bf16      cad_add_norm_kernel
     xz  = u @ W_in                  [N, T, 2E] bf16     torch.matmul (cuBLAS)

@@ -477,55 +477,61 @@ class Predictor:
         return lambda ptokens, lengths=None: classify(unpack(ptokens, max_len), None)
 
     def _caduceus_step(self, classify_logits, params, T, card, post):
-        """The Caduceus's classify step over a device call of width T: the
-        rows that hold a read (the rest, a flush batch's padding, get zero
-        logits) in micro-batches of models.caduceus.micro_rows(params, T)
-        reads (fixed by the widths and T: one micro-batch's activations,
-        both strands, fit its 8 GiB), each one classify_logits call under a
-        "cad.forward" span; the card's lock holds while the micro-batches
-        are launched, so that the dispatcher threads' calls never hold more
-        than one micro-batch's activations on a card at once. The logits
-        are put back in row order before `post`. With the timer on it
-        counts cad.micro_batches, cad.padded_tokens (rows x T x 2 strands,
-        what the kernels compute) and cad.tokens (the reads' own bases, x 2
-        strands), the last read once the call's work is done."""
+        """The Caduceus's classify step over a device call of width T. The
+        call's lengths come to the host once; the rows that hold a read (the
+        rest, a flush batch's padding, get zero logits) are ordered longest
+        first (a stable sort) and gathered on the card in that order, then
+        cut by models.caduceus.micro_batches: each micro-batch runs at its
+        longest read rounded up to WIDTH_STEP (at most T), holds at most
+        micro_rows(params, W) reads (one micro-batch's activations, both
+        strands, fit its 8 GiB at its own width) and only reads of that
+        rounded width. Each is one classify_logits call on the first W
+        columns under a "cad.forward" span; the card's lock holds while the
+        micro-batches are launched, so that the dispatcher threads' calls
+        never hold more than one micro-batch's activations on a card at
+        once. The logits are put back in the call's row order before
+        `post`. With the timer on it counts cad.micro_batches,
+        cad.padded_tokens (rows x W x 2 strands, summed over the
+        micro-batches: what the kernels compute) and cad.tokens (the reads'
+        own bases, x 2 strands)."""
         import torch
 
-        from ribodetector_tpu_torch.models.caduceus import micro_rows
+        from ribodetector_tpu_torch.models.caduceus import micro_batches
         from ribodetector_tpu_torch.runtime.profiling import span
 
-        rows = micro_rows(params, T)
         lock = self._forward_locks[card]
         timer = self.timer
         kernel = self.kernel
         compute_dtype = getattr(torch, self.compute_dtype)
+        classes = params.w_head.shape[1]
 
         def classify(tokens, lengths):
             B = tokens.shape[0]
-            # a call's rows of no bases (a flush batch's padding rows) have
-            # zero logits by definition: only the reads' rows are computed
-            # (one wait for this call's lengths, before the card's lock)
-            live = torch.nonzero(lengths > 0).squeeze(1)
-            n = live.numel()
-            if n < B:
-                tokens, lengths = tokens.index_select(0, live), lengths.index_select(0, live)
+            # one wait for this call's lengths, before the card's lock
+            lens = lengths.cpu().long().clamp(0, T)
+            lens, order = torch.sort(lens, descending=True, stable=True)
+            n = int((lens > 0).sum())
+            lens = lens[:n]
+            cuts = micro_batches(params, lens, T)
+            idx = order[:n].to(tokens.device)
+            tokens, lengths = tokens.index_select(0, idx), lengths.index_select(0, idx)
             with torch.no_grad():
                 with lock:
                     parts = []
-                    for a in range(0, n, rows) or [0]:
+                    for a, b, W in cuts:
                         with span("cad.forward"):
                             parts.append(classify_logits(
-                                params, tokens[a: a + rows], lengths[a: a + rows],
+                                params, tokens[a:b, :W], lengths[a:b],
                                 semantics="packed", kernel=kernel,
                                 compute_dtype=compute_dtype))
-                logits = parts[0] if len(parts) == 1 else torch.cat(parts)
-                if n < B:
-                    logits = logits.new_zeros((B, logits.shape[1])).index_copy_(0, live, logits)
+                logits = torch.zeros((B, classes), dtype=torch.float32, device=tokens.device)
+                if parts:
+                    logits.index_copy_(0, idx, torch.cat(parts))
                 out = post(logits)
             if timer.enabled:
-                timer.count("cad.micro_batches", len(parts))
-                timer.count("cad.padded_tokens", 2 * n * T)
-                timer.count("cad.tokens", 2 * int(lengths.clamp(0, T).sum()))
+                timer.count("cad.micro_batches", len(cuts))
+                timer.count("cad.padded_tokens", sum(2 * (b - a) * W for a, b, W in cuts))
+                timer.count("cad.tokens", 2 * int(lens.sum()))
             return out
 
         return classify

@@ -199,6 +199,69 @@ def test_padding_and_micro_batches_change_no_logits(tmp_path, weights, monkeypat
     assert torch.allclose(split, one, rtol=0, atol=1e-7) and torch.all(split[40:] == 0)
 
 
+def width_of(length, T):
+    return min(T, -(-length // cad.WIDTH_STEP) * cad.WIDTH_STEP)
+
+
+def test_micro_batches_are_cut_by_read_length(tmp_path, weights, monkeypatch):
+    """One call of mixed lengths (rows of no bases, reads of 1 base and of
+    exactly T, runs of one length) through the Predictor's step: its reads
+    longest first, each micro-batch at its longest read rounded up to
+    WIDTH_STEP and holding only reads of that rounded width, at most
+    micro_rows at that width; every read classified once, its logits back
+    in the call's row order as one untrimmed call gives them."""
+    from ribodetector_tpu_torch.config import ConfigParser
+    from ribodetector_tpu_torch.runtime import Predictor
+
+    T = 100
+    rng = np.random.default_rng(10)
+    lengths = np.concatenate([[0, 1, T, 0, 1], [T] * 7, [40] * 13, [T - 3, 97, 48, 33, 32, 0],
+                              rng.integers(1, T + 1, 30)])
+    lengths = lengths[rng.permutation(len(lengths))]
+    tok = rng.integers(0, 5, (len(lengths), T)).astype(np.uint8)
+    tok[np.arange(T)[None, :] >= lengths[:, None]] = 4
+    t, n = torch.from_numpy(tok), torch.from_numpy(lengths.astype(np.int32))
+    p = load_params(weights, arch="CaduceusParams")
+    base = cad.caduceus_logits(p, t, n)
+
+    monkeypatch.setattr(cad, "ACTIVATION_BYTES", 3 * cad.bytes_per_token(p) * 2 * T)
+    assert cad.micro_rows(p, T) == 3 and cad.micro_rows(p, 48) == 6
+    args = cli.build_arg_parser().parse_args(["-l", str(T), "-i", "x.fa", "-o", "y.fa"])
+    pred = Predictor(ConfigParser(json.loads(Path(config(tmp_path, weights)).read_text())),
+                     args, device="cpu")
+    pred.load_model()
+    pred.timer.enabled = True
+    calls = record_classify(monkeypatch)
+    got = pred._build_infer(emit="logits")(t, n)
+
+    # the rule, one read at a time: the longest left opens a micro-batch
+    want, left = [], sorted(lengths[lengths > 0].tolist(), reverse=True)
+    while left:
+        W = width_of(left[0], T)
+        k = 0
+        while k < min(len(left), cad.micro_rows(p, W)) and width_of(left[k], T) == W:
+            k += 1
+        want.append((k, W))
+        left = left[k:]
+    assert [(len(ln), tk.shape[1]) for tk, ln, _ in calls] == want
+    for tk, ln, _ in calls:
+        W, longest = tk.shape[1], int(ln.max())
+        assert longest <= W and (W < longest + cad.WIDTH_STEP or W == T)
+        assert len(ln) <= cad.micro_rows(p, W) and ln.min() > 0
+    # every read once: (length, its tokens) as a multiset
+    seen = [(int(k), r[:k].tobytes()) for tk, ln, _ in calls for r, k in zip(tk, ln)]
+    assert sorted(seen) == sorted((int(k), r[:k].tobytes()) for r, k in zip(tok, lengths) if k)
+    assert got.shape == base.shape and torch.all(got[n == 0] == 0)
+    assert (got - base).abs().max() < TOL
+    c = pred.timer.counters
+    assert c["cad.micro_batches"] == len(want)
+    assert c["cad.padded_tokens"] == sum(2 * k * W for k, W in want)
+    assert c["cad.tokens"] == 2 * int(lengths.sum())
+    # a call of no bases at all: zero logits, nothing computed
+    assert torch.equal(pred._build_infer(emit="logits")(t[:3], 0 * n[:3]), torch.zeros(3, 2))
+    assert len(calls) == len(want) and c["cad.micro_batches"] == len(want)
+
+
 # (e)
 @pytest.mark.parametrize("fmt,ext", [("fasta", ".fa"), ("fastq", ".fq.gz")])
 def test_cli_paired_against_reference_labels(tmp_path, weights, fmt, ext):

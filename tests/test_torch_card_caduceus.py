@@ -201,6 +201,50 @@ def test_detect_cli_runs_the_kernels(tmp_path, params):
     assert os.path.getsize(out) + os.path.getsize(rr) > 0
 
 
+def test_step_of_sorted_trimmed_micro_batches(tmp_path, params, monkeypatch):
+    """The Predictor's step on the card over a call like the benchmark's
+    (40-300 bp, a tenth at 300, rows of no bases), its micro-batches cut by
+    read length (several a width: the activation budget shrunk), against
+    one untrimmed caduceus_logits_cuda call at width T over the same rows:
+    the same labels, logits to cuBLAS's order (test_kernel_path_against_plain's
+    tolerance), rows of no bases 0."""
+    from ribodetector_tpu_torch import cli
+    from ribodetector_tpu_torch.config import ConfigParser
+    from ribodetector_tpu_torch.ops import caduceus_cuda as cc
+    from ribodetector_tpu_torch.runtime import Predictor
+
+    rng = np.random.default_rng(8)
+    n = 600
+    lengths = rng.integers(40, T + 1, n)
+    lengths[rng.random(n) < 0.1] = T
+    lengths[rng.choice(n, 8, replace=False)] = 0
+    lengths = torch.from_numpy(lengths).cuda()
+    tok = torch.from_numpy(rng.integers(0, 5, (n, T)).astype(np.uint8)).cuda()
+    tok[torch.arange(T, device="cuda")[None, :] >= lengths[:, None]] = 4
+    npz = str(tmp_path / "cad.npz")
+    cad.save_params(npz, params)
+    cfg = {"name": "cad", "arch": {"type": "CaduceusParams", "args": cad.dims(params)},
+           "state_file": {"mcc": npz, "recall": npz},
+           "runtime": {"semantics": "packed", "compute_dtype": "bfloat16", "kernel": "auto"}}
+    args = cli.build_arg_parser().parse_args(["-l", str(T), "-i", "x.fa", "-o", "y.fa"])
+    pred = Predictor(ConfigParser(cfg), args, device="cuda")
+    pred.load_model()
+    pred.timer.enabled = True
+    monkeypatch.setattr(cad, "ACTIVATION_BYTES", 64 * cad.bytes_per_token(params) * 2 * T)
+    cc.reset_launches()
+    got = pred._build_infer(emit="logits")(tok, lengths)
+    cuts = pred.timer.counters["cad.micro_batches"]
+    assert cuts > (T - 40) // cad.WIDTH_STEP and cc.launches("scan") == 16 * cuts
+    want = cc.caduceus_logits_cuda(params, tok, lengths)
+    scale = want.abs().max()
+    print(f"\nsorted, trimmed step vs one untrimmed call: {cuts} micro-batches, "
+          f"bit for bit {torch.equal(got, want)}, max gap {float((got - want).abs().max()):.3g} "
+          f"of logits up to {float(scale):.3g}")
+    assert (got - want).abs().max() <= 0.02 * scale
+    assert torch.equal(got.argmax(1), want.argmax(1))
+    assert torch.all(got[lengths == 0] == 0)
+
+
 def test_add_norm_kernel_against_plain(params):
     from ribodetector_tpu_torch.ops import caduceus_cuda as cc
 
